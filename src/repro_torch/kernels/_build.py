@@ -22,7 +22,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("ddim_step.cu", "flash_attention.cu")
+SOURCES = ("ddim_step.cu", "dpmpp_step.cu", "flash_attention.cu",
+           "group_mean.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
@@ -34,10 +35,17 @@ SIGNATURES = {
     # n_per_row, row_stride, dtype, stream
     "sage_ddim_step": (_P, _P, _P, _P, _P, _P, _P, _P, _F, _F, _LL, _LL,
                        _I, _I, _P),
+    # z, eps_u, eps_c, eps_prev, out, eps_out, a_t, s_t, a_n, s_n, lam,
+    # lam_p, lam_n, first, guidance, clip_x0, n, n_per_row, row_stride,
+    # dtype, stream
+    "sage_dpmpp_step": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                        _P, _F, _F, _LL, _LL, _I, _I, _P),
     # q, k, v, out, B, Sq, Sk, H, Hkv, D, scale, causal, window, dtype,
     # stream
     "sage_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
                              _I, _I, _I, _P),
+    # x, mask, out, K, N, F, dtype, stream
+    "sage_group_mean": (_P, _P, _P, _I, _I, _LL, _I, _P),
 }
 
 #: seconds the last build took (0.0 when a cached library was loaded)

@@ -20,3 +20,20 @@ def per_row_scalars(*scalars) -> bool:
     """True if any step scalar carries a batch axis — the predicate that
     selects the per-row launch over the broadcast one."""
     return any(isinstance(s, torch.Tensor) and s.ndim >= 1 for s in scalars)
+
+
+def step_arrays(values, rows: int, device):
+    """Step scalars as contiguous f32 device arrays for a step kernel, and
+    the row stride the kernel reads them at: 1 when any value is per-row
+    (every value is then expanded to (rows,)), else 0 (one value each).
+    A tensor already on ``device`` (a schedule gather, a warm-up flag) is
+    converted there, with no copy from the host."""
+    per_row = per_row_scalars(*values)
+    out = []
+    for v in values:
+        v = torch.as_tensor(v, dtype=torch.float32, device=device)
+        if v.ndim and tuple(v.shape) != (rows,):
+            raise ValueError(f"per-row step scalars must have shape "
+                             f"({rows},), got {tuple(v.shape)}")
+        out.append((v.expand(rows) if per_row else v).contiguous())
+    return out, int(per_row)

@@ -12,25 +12,10 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._tiles import per_row_scalars
+from repro_torch.kernels._tiles import step_arrays
 from repro_torch.kernels.ddim_step.ref import fused_cfg_ddim_step_ref
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-
-
-def _schedule_arrays(values, rows: int, device):
-    """(a_t, s_t, a_n, s_n) as contiguous f32 device arrays and the row
-    stride the kernel reads them at: 1 when any value is per-row (every
-    value is then (rows,)), else 0 (one value each)."""
-    per_row = per_row_scalars(*values)
-    out = []
-    for v in values:
-        v = torch.as_tensor(v, dtype=torch.float32, device=device)
-        if v.ndim and tuple(v.shape) != (rows,):
-            raise ValueError(f"per-row step scalars must have shape "
-                             f"({rows},), got {tuple(v.shape)}")
-        out.append((v.expand(rows) if per_row else v).contiguous())
-    return out, int(per_row)
 
 
 def fused_cfg_ddim_step(z, eps_u, eps_c, guidance, a_t, s_t, a_n, s_n,
@@ -58,8 +43,8 @@ def fused_cfg_ddim_step(z, eps_u, eps_c, guidance, a_t, s_t, a_n, s_n,
     if z.ndim == 0:
         raise ValueError("ddim_step needs a batch axis")
     rows, n = z.shape[0], z.numel()
-    (a_t, s_t, a_n, s_n), stride = _schedule_arrays((a_t, s_t, a_n, s_n),
-                                                    rows, z.device)
+    (a_t, s_t, a_n, s_n), stride = step_arrays((a_t, s_t, a_n, s_n), rows,
+                                               z.device)
     out = torch.empty_like(z)
     if n == 0:
         return out

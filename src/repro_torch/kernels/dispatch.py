@@ -1,5 +1,7 @@
 """Kernel backend dispatch — one switch between the plain PyTorch math,
-the chunked online-softmax loop and the hand-written CUDA kernels.
+the chunked online-softmax loop and the hand-written CUDA kernels
+(attention, the fused CFG+DDIM and CFG+DPM-Solver++(2M) steps, the masked
+group mean).
 
 Routing follows the TENSOR's device, never what is installed: on a CUDA
 tensor the ``kernel`` / ``fused`` routes launch the kernel or raise; on a
@@ -17,12 +19,17 @@ import torch
 
 from repro_torch.kernels.ddim_step.ops import fused_cfg_ddim_step
 from repro_torch.kernels.ddim_step.ref import fused_cfg_ddim_step_ref
+from repro_torch.kernels.dpmpp_step.ops import fused_cfg_dpmpp_step
+from repro_torch.kernels.dpmpp_step.ref import fused_cfg_dpmpp_step_ref
 from repro_torch.kernels.flash_attention.ops import (MAX_HEAD_DIM,
                                                      flash_attention)
+from repro_torch.kernels.group_mean.ops import masked_group_mean
+from repro_torch.kernels.group_mean.ref import masked_group_mean_ref
 from repro_torch.models.layers import attend, attend_chunked, causal_mask
 
 ATTN_IMPLS = ("naive", "chunked", "kernel")
 STEP_IMPLS = ("reference", "fused")
+GROUP_MEAN_IMPLS = ("reference", "kernel")
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -66,3 +73,31 @@ def cfg_ddim_step(z: torch.Tensor, eps_u: torch.Tensor, eps_c: torch.Tensor,
                                    a_n, s_n, clip_x0=clip_x0)
     return fused_cfg_ddim_step_ref(z, eps_u, eps_c, guidance, a_t, s_t,
                                    a_n, s_n, clip_x0=clip_x0)
+
+
+def cfg_dpmpp_step(z: torch.Tensor, eps_u: torch.Tensor,
+                   eps_c: torch.Tensor, eps_prev: torch.Tensor, *, guidance,
+                   a_t, s_t, a_n, s_n, lam, lam_p, lam_n, is_first,
+                   clip_x0: float = 0.0, impl: str = "reference"):
+    """CFG combine + DPM-Solver++(2M) update -> ``(z_next, eps_combined)``:
+    the fused kernel (one pass: 4 reads, 2 writes) or the reference math.
+    Scalars come from ``samplers.dpmpp_scalars``; ``is_first`` flags the
+    history warm-up step (the first step and the branch fork)."""
+    if impl not in STEP_IMPLS:
+        raise ValueError(f"unknown step impl {impl!r}; one of {STEP_IMPLS}")
+    step = fused_cfg_dpmpp_step if impl == "fused" \
+        else fused_cfg_dpmpp_step_ref
+    return step(z, eps_u, eps_c, eps_prev, guidance, a_t, s_t, a_n, s_n,
+                lam, lam_p, lam_n, is_first, clip_x0=clip_x0)
+
+
+def group_mean(x: torch.Tensor, mask: torch.Tensor, *,
+               impl: str = "reference") -> torch.Tensor:
+    """Masked mean over the member axis: x (K, N, ...), mask (K, N).
+    ``"kernel"`` is the JAX package's ``"pallas"`` route."""
+    if impl not in GROUP_MEAN_IMPLS:
+        raise ValueError(f"unknown group_mean impl {impl!r}; one of "
+                         f"{GROUP_MEAN_IMPLS}")
+    if impl == "kernel":
+        return masked_group_mean(x, mask)
+    return masked_group_mean_ref(x, mask)

@@ -3,9 +3,13 @@
 Each tick, in-flight groups are bucketed by a **pack signature** —
 everything that must agree for their rows to ride one phase call:
 ``phase`` (shared rows run under c̄, branch rows under per-member
-conditioning), ``sampler``, latent ``shape`` and ``n_steps``, the segment
+conditioning), ``sampler`` (or the ``MIXED`` wildcard under
+``mix_samplers``, where each row is stepped by its own solver through
+:func:`pack_samplers`), latent ``shape`` and ``n_steps``, the segment
 length every row advances.  The share-ratio bucket is not part of it: a
 group's branch point rides in the per-row ``step_idx`` / ``fork_idx``.
+Nor is the step budget: each row gathers timesteps from its own group's
+grid (:func:`pack_grid`).
 
 One bucket becomes ONE ``shared_phase`` / ``branch_phase`` call over a
 stacked :class:`~repro_torch.core.shared_sampling.SampleCarry`.  Branch
@@ -17,8 +21,7 @@ broadcast launch.
 
 Groups are duck-typed: anything with ``carry`` / ``cbar`` / ``cond_flat``
 / ``members`` / ``steps_done`` / ``n_shared`` / ``state`` / ``shape`` /
-``sampler`` / ``total_steps`` packs.  Mixed-sampler packs and per-row
-step budgets (2-D grids) come with a later slice.
+``sampler`` / ``total_steps`` packs.
 """
 from __future__ import annotations
 
@@ -30,11 +33,13 @@ import torch
 from repro_torch.core.schedule import ddim_timesteps
 from repro_torch.core.shared_sampling import SampleCarry
 
+MIXED = "*"    # PackKey.sampler wildcard under mix_samplers
+
 
 class PackKey(NamedTuple):
     """Pack-compatibility signature (see module docstring for the rules)."""
     phase: str                  # "shared" | "branch"
-    sampler: str
+    sampler: str                # solver name, or "*" under mix_samplers
     shape: Tuple[int, ...]      # the bucket's latent (H, W, C)
     n_steps: int                # segment length this tick
 
@@ -45,16 +50,18 @@ def phase_remaining(g) -> int:
     return limit - g.steps_done
 
 
-def pack_signature(g, slice_steps: int,
+def pack_signature(g, slice_steps: int, mix_samplers: bool = False,
                    n_steps: Optional[int] = None) -> PackKey:
     """The signature under which group ``g`` may share a launch this tick;
     ``n_steps`` overrides the per-group ``min(slice_steps, remaining)``."""
     if n_steps is None:
         n_steps = min(slice_steps, phase_remaining(g))
-    return PackKey(g.state, g.sampler, tuple(g.shape), n_steps)
+    return PackKey(g.state, MIXED if mix_samplers else g.sampler,
+                   tuple(g.shape), n_steps)
 
 
 def build_packs(groups: Sequence, slice_steps: int,
+                mix_samplers: bool = False,
                 align_phases: bool = False) -> List[Tuple[PackKey, List]]:
     """Bucket in-flight groups by pack signature (insertion-ordered).
 
@@ -70,7 +77,7 @@ def build_packs(groups: Sequence, slice_steps: int,
     packs: Dict[PackKey, List] = {}
     for g in groups:
         packs.setdefault(
-            pack_signature(g, slice_steps,
+            pack_signature(g, slice_steps, mix_samplers,
                            n_steps=phase_steps.get(g.state)),
             []).append(g)
     return list(packs.items())
@@ -131,14 +138,38 @@ def unpack_branch(carry: SampleCarry, groups: Sequence, width: int) -> None:
                               carry.step_idx[lo])
 
 
-def pack_grid(groups: Sequence, sched_T: int, device="cpu") -> torch.Tensor:
-    """The 1-D DDIM grid a bucket's rows gather timesteps from (every
-    group of a bucket runs the same step budget in this slice)."""
-    ts = {g.total_steps for g in groups}
-    if len(ts) != 1:
-        raise NotImplementedError("packs mixing step budgets (per-row "
-                                  "grids) are not ported yet")
-    return torch.from_numpy(ddim_timesteps(sched_T, ts.pop())).to(device)
+def pack_grid(groups: Sequence, sched_T: int,
+              width: Optional[int] = None) -> torch.Tensor:
+    """The DDIM grid(s) a bucket's rows gather timesteps from, on the host
+    (the phase moves it to the device once per segment).
+
+    A uniform step budget gives the plain 1-D grid.  Mixed budgets give a
+    2-D (rows, L) stack, row j its group's own grid zero-padded to
+    ``L = max(total_steps) + 1`` (a row never indexes past its own
+    budget); ``width`` repeats each group's row per member row (branch
+    packs)."""
+    ts = [g.total_steps for g in groups]
+    if len(set(ts)) == 1:
+        return torch.from_numpy(ddim_timesteps(sched_T, ts[0]))
+    rows = np.zeros((len(groups), max(ts) + 1), np.int64)
+    for j, g in enumerate(groups):
+        rows[j, :g.total_steps + 1] = ddim_timesteps(sched_T, g.total_steps)
+    if width is not None:
+        rows = np.repeat(rows, width, axis=0)
+    return torch.from_numpy(rows)
+
+
+def pack_samplers(groups: Sequence, width: Optional[int] = None
+                  ) -> Optional[Tuple[str, ...]]:
+    """Per-row solver names of a bucket: ``None`` when every group runs the
+    same solver (the scalar-sampler path), else one name per row
+    (``width`` repeats each group's per member row, branch packs)."""
+    names = [g.sampler for g in groups]
+    if len(set(names)) == 1:
+        return None
+    if width is not None:
+        names = [s for s in names for _ in range(width)]
+    return tuple(names)
 
 
 def pad_stats(groups: Sequence, width: int) -> Tuple[int, int]:

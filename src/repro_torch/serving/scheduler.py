@@ -20,6 +20,7 @@ the noise does not depend on the device), and parity tests pass a
 from __future__ import annotations
 
 from dataclasses import dataclass
+from dataclasses import replace as dc_replace
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -210,29 +211,47 @@ class RequestScheduler:
             if g.steps_done == g.total_steps:
                 g.state = "done"
 
+    def _bucket_sage(self, groups: Sequence[_Group],
+                     width: Optional[int] = None
+                     ) -> Tuple[SageConfig, Optional[Tuple[str, ...]]]:
+        """A bucket's solver: its groups' common sampler on the scalar path,
+        or the deployment config plus per-row names for a mixed bucket."""
+        rs = packing.pack_samplers(groups, width)
+        if rs is None:
+            return dc_replace(self.sage, sampler=groups[0].sampler), None
+        return self.sage, rs
+
     def _advance_packed(self, todo: List[_Group], slice_steps: int) -> None:
         """One drain tick: bucket the groups by pack signature with
         phase-aligned segment lengths, advance each bucket with ONE phase
         call over a stacked carry, scatter back, then apply transitions in
-        ``todo`` order."""
+        ``todo`` order.  A branch pack's mask moves to the device once per
+        segment (the shared-uncond group mean reads it every step)."""
         null = self._null_cond()
         seg_len: Dict[int, int] = {}
         for key, groups in packing.build_packs(todo, slice_steps,
                                                align_phases=True):
             s = key.n_steps
-            grid = packing.pack_grid(groups, self.sched.T, self.device)
             if key.phase == "shared":
                 carry, cbar = packing.pack_shared(groups)
-                out = shared_phase(self._eps_fn, self.sched, self.sage,
-                                   carry, cbar, null, s, grid=grid)
+                sage, rs = self._bucket_sage(groups)
+                out = shared_phase(self._eps_fn, self.sched, sage, carry,
+                                   cbar, null, s,
+                                   grid=packing.pack_grid(groups,
+                                                          self.sched.T),
+                                   row_samplers=rs)
                 packing.unpack_shared(out, groups)
                 self._count_launch(len(groups), 0)
             else:
                 carry, cond, mask, fork = packing.pack_branch(
                     groups, self.group_size)
-                out = branch_phase(self._eps_fn, self.sched, self.sage,
-                                   carry, cond, mask, null, s, fork,
-                                   grid=grid)
+                sage, rs = self._bucket_sage(groups, self.group_size)
+                out = branch_phase(self._eps_fn, self.sched, sage, carry,
+                                   cond, mask.to(self.device), null, s, fork,
+                                   grid=packing.pack_grid(
+                                       groups, self.sched.T,
+                                       self.group_size),
+                                   row_samplers=rs)
                 packing.unpack_branch(out, groups, self.group_size)
                 self._count_launch(*packing.pad_stats(groups,
                                                       self.group_size))

@@ -17,6 +17,7 @@ from repro.kernels.ddim_step.ops import fused_cfg_ddim_step as jax_ddim
 from repro.kernels.flash_attention.ops import flash_attention as jax_flash
 from repro.models import layers as jax_layers
 from repro_torch.kernels import dispatch
+from repro_torch.kernels._tiles import step_arrays
 from repro_torch.kernels.ddim_step import ops as ddim_ops
 from repro_torch.kernels.ddim_step.ref import fused_cfg_ddim_step_ref
 from repro_torch.kernels.flash_attention import ops as flash_ops
@@ -81,18 +82,21 @@ def test_ddim_wrapper_rejects_mismatched_shapes():
 def test_ddim_schedule_arrays():
     """Per-row scalars become (rows,) arrays read at stride 1; 0-dim ones
     stay single values read at stride 0."""
-    arrays, stride = ddim_ops._schedule_arrays(
+    arrays, stride = step_arrays(
         (torch.tensor([0.1, 0.2]), 0.3, torch.tensor(0.4),
          torch.tensor([0.5, 0.6])), 2, "cpu")
     assert stride == 1
     np.testing.assert_allclose(torch.stack(arrays).numpy(), [
         [0.1, 0.2], [0.3, 0.3], [0.4, 0.4], [0.5, 0.6]], rtol=1e-7)
-    arrays, stride = ddim_ops._schedule_arrays((0.1, 0.2, 0.3, 0.4), 5,
-                                               "cpu")
+    arrays, stride = step_arrays((0.1, 0.2, 0.3, 0.4), 5, "cpu")
     assert stride == 0 and all(a.shape == () for a in arrays)
     with pytest.raises(ValueError, match="per-row"):
-        ddim_ops._schedule_arrays((torch.tensor([0.1, 0.2, 0.3]), 0.2, 0.3,
-                                   0.4), 2, "cpu")
+        step_arrays((torch.tensor([0.1, 0.2, 0.3]), 0.2, 0.3, 0.4), 2,
+                    "cpu")
+    # a per-row warm-up flag (the dpmpp kernel's eighth array) becomes 0/1
+    arrays, stride = step_arrays((0.5, torch.tensor([True, False])), 2,
+                                 "cpu")
+    assert stride == 1 and arrays[1].tolist() == [1.0, 0.0]
 
 
 # ---------------------------------------------------------------------------

@@ -73,6 +73,61 @@ def test_dit_eps_matches_jax(attn_impl):
                                atol=ATOL)
 
 
+@pytest.fixture(scope="module")
+def dit_100m():
+    """``sage-dit-100m`` (12 layers, d_model 768, 256 tokens) with seeded
+    weights, one latent and JAX's f32 eps for it."""
+    jcfg = jax_replace(jax_get_config("sage-dit-100m"), dtype="float32")
+    params = randomized(jax_dit.init_params, jcfg, jax.random.PRNGKey(0),
+                        seed=11)
+    rng = np.random.default_rng(12)
+    H = jcfg.latent_size
+    z = rng.standard_normal((1, H, H, jcfg.latent_channels)
+                            ).astype(np.float32)
+    t = np.array([700], np.int32)
+    cond = rng.standard_normal((1, jcfg.cond_len, jcfg.cond_dim)
+                               ).astype(np.float32)
+    jp = jax.tree.map(jnp.asarray, params)
+    inputs = tuple(map(jnp.asarray, (z, t, cond)))
+    return dict(jcfg=jcfg, params=params, jp=jp, inputs=(z, t, cond),
+                want=np.asarray(jax_dit.forward(jp, jcfg, *inputs)))
+
+
+def _port_eps(d, dtype):
+    model = weights.dit_from_jax(
+        d["params"], replace(get_config("sage-dit-100m"), dtype=dtype,
+                             attn_impl="kernel"), device="cpu")
+    z, t, cond = d["inputs"]
+    with torch.no_grad():
+        return model(torch.from_numpy(z), torch.from_numpy(t).long(),
+                     torch.from_numpy(cond)).float().numpy()
+
+
+def test_dit_100m_f32_matches_jax(dit_100m):
+    """The parity bar at ``sage-dit-100m`` shapes (head_dim 64, 256 tokens,
+    cond 64x512) in f32 (observed max abs error ~6e-6 on |eps| ~ 1)."""
+    got = _port_eps(dit_100m, "float32")
+    np.testing.assert_allclose(got, dit_100m["want"], rtol=RTOL, atol=ATOL)
+
+
+def test_dit_100m_bf16_error_no_worse_than_jax(dit_100m):
+    """bf16 activations: both packages' bf16 eps held against JAX's f32
+    eps.  The frameworks round to bf16 at different places, so the port's
+    eps cannot equal JAX's bf16 eps; its mean error must stay within 1.25x
+    JAX's own plus 1e-3 (observed: 0.0104 against 0.0101)."""
+    d = dit_100m
+    want = d["want"]
+    jax_bf16 = np.asarray(jax_dit.forward(
+        d["jp"], jax_replace(d["jcfg"], dtype="bfloat16"),
+        *map(jnp.asarray, d["inputs"])), np.float32)
+    port_bf16 = _port_eps(d, "bfloat16")
+    jax_err = float(np.abs(jax_bf16 - want).mean())
+    port_err = float(np.abs(port_bf16 - want).mean())
+    assert np.isfinite(port_bf16).all()
+    assert 0 < jax_err < 0.05                  # bf16 really was in play
+    assert port_err <= 1.25 * jax_err + 1e-3, (port_err, jax_err)
+
+
 @pytest.mark.parametrize("attn_impl", ["naive", "kernel"])
 def test_encode_text_matches_jax(attn_impl):
     jtc = jax_te.text_cfg(dim=64, layers=2)
