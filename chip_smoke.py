@@ -3,19 +3,19 @@
 
     python3 chip_smoke.py
 
-Run from the root of a checkout.  Four phases; any failure exits non-zero
+Run from the root of a checkout.  Five phases; any failure exits non-zero
 without the result line:
 
 1. build — compile the CUDA kernels under ``src/repro_torch/csrc`` with
    nvcc for sm_90a (``repro_torch.kernels._build``) and print ptxas's
    register / spill report;
-2. kernel vs plain — every kernel of the serving path against its plain
-   PyTorch version (``ref.py``) on the card at the main path's shapes, in
+2. kernel vs plain — every kernel of the serving paths against its plain
+   PyTorch version (``ref.py``) on the card at the main paths' shapes, in
    f32 and bf16, each error beside its tolerance, with the kernel's, the
    plain version's and (for attention) the library's time;
-3. end to end — for each serving path (``PATHS``: 30 DDIM steps, and 30
-   DPM-Solver++(2M) steps with the shared-uncond CFG), one
-   ``SageServingEngine.step()`` at the full ``sage-dit`` width (28
+3. end to end, DiT — for each diffusion serving path (``DIT_PATHS``: 30
+   DDIM steps, and 30 DPM-Solver++(2M) steps with the shared-uncond CFG),
+   one ``SageServingEngine.step()`` at the full ``sage-dit`` width (28
    layers, d_model 1152, 16 heads of 72, 1024 tokens, cond 77x768; text
    tower dim 768, 4 layers; VAE to 512x512x3 in bf16; the same weights
    for both) over 8 prompts from 2 themes, group_size 4, on the kernel
@@ -23,9 +23,21 @@ without the result line:
    after; every image must be finite, every kernel of the path launched
    and no kernel off it.  Each step then runs once more under
    ``torch.profiler`` for device time by kernel and the busy share;
-4. reference — each path's engine at smoke size on the card against the
-   plain CPU path: equal groups, NFE and launches, images within
-   tolerance.
+4. end to end, ``mamba2`` — the AR shared-prefix path at the full
+   ``mamba2-780m`` width (48 SSD layers, d_model 1536, 48 heads of 64,
+   d_state 128, vocab 50280, bf16 activations): the launcher
+   (``repro_torch.launch.serve``) at batch 4, 1024-token prompts, 32
+   generated tokens, independent and ``--shared-prefix``; then
+   ``shared_prefix_prefill`` on 2 groups of 4 requests (1024-token shared
+   prefix, 64-token tails) and 32 greedy decode steps.  ``ssd_scan`` must
+   launch once per layer of every prefill call and no other kernel at all;
+   token-step counts must equal ``P + N (S - P)``; each group's logits must
+   equal a full independent prefill's, within bf16's own error in bf16 and
+   within 1e-3 of their magnitude in f32.  One trunk
+   prefill and the decode loop are then traced;
+5. reference — each path at smoke size on the card against the plain CPU
+   path: equal groups, NFE, launches and token-step counts, images and
+   logits within tolerance.
 
 The line before the last is ``nvidia-smi``'s name and power limit; the
 last line is ``{"ok": true, "device": {...}}``.  The port never calls
@@ -33,6 +45,7 @@ last line is ``{"ok": true, "device": {...}}``.  The port never calls
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import re
@@ -47,7 +60,12 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 PEAK_FLOPS = {"float32": 67e12,    # f32 outside the tensor cores
               "bfloat16": 989e12}  # dense bf16 tensor cores
 # tests/test_kernels.py: step kernels 1e-5 / 3e-2 (f32 / bf16); flash
-# attention 2e-4 / 4e-2.  Both flash paths accumulate in f32, so f32 differs
+# attention 2e-4 / 4e-2.  The SSD scan: the kernel's tiles (y_diag and the
+# chunk states) are f32 on both sides, computed in f32 from the same inputs
+# in bf16 as in f32, so both are held at f32's 1e-4 (tests/test_kernel_ssd.
+# py); the whole wrapper's y is rounded once to x's dtype, which in bf16
+# may flip that rounding by one ulp: two bf16 ulps, 2^-6 of (1 + |y|).
+# Both flash paths accumulate in f32, so f32 differs
 # by summation order only; in bf16 the output is rounded once to 8 bits of
 # mantissa (one ulp of |o| <= 4 is 1.6e-2).
 # group mean: f32 sums of 4 products in another order than torch's
@@ -58,7 +76,9 @@ TOL = {("ddim_step", "float32"): 1e-5, ("ddim_step", "bfloat16"): 3e-2,
        ("dpmpp_step", "float32"): 1e-5, ("dpmpp_step", "bfloat16"): 3e-2,
        ("group_mean", "float32"): 1e-5, ("group_mean", "bfloat16"): 1e-2,
        ("flash_attention", "float32"): 2e-4,
-       ("flash_attention", "bfloat16"): 4e-2}
+       ("flash_attention", "bfloat16"): 4e-2,
+       ("ssd_scan", "float32"): 1e-4, ("ssd_scan", "bfloat16"): 1e-4,
+       ("ssd_scan y", "float32"): 1e-4, ("ssd_scan y", "bfloat16"): 2.0 ** -6}
 
 THEMES = (
     ["a red circle on a white background",
@@ -127,10 +147,11 @@ def phase_build():
     _build.load_library()
 
 
-def _check(failures, kernel, case, dtype, got, want, extra):
+def _check(failures, kernel, case, dtype, got, want, extra, tol_key=None):
     """allclose(rtol=tol, atol=tol): |kernel - plain| <= tol * (1 + |plain|)
-    everywhere; ``worst`` is the largest ratio of the two sides (<= 1)."""
-    tol = TOL[(kernel, dtype)]
+    everywhere; ``worst`` is the largest ratio of the two sides (<= 1).
+    ``tol_key`` names a TOL entry other than the kernel's own."""
+    tol = TOL[(tol_key or kernel, dtype)]
     diff = (got.float() - want.float()).abs()
     err = diff.max().item()
     worst = (diff / (tol * (1 + want.float().abs()))).max().item()
@@ -146,7 +167,8 @@ def _kernel_row(name, shape, err, ms, plain, bound, bound_by, library_ms):
     file = {"ddim_step": "ddim_step/ddim_step.py:39",
             "dpmpp_step": "dpmpp_step/dpmpp_step.py:53",
             "group_mean": "group_mean/group_mean.py:21",
-            "flash_attention": "flash_attention/flash_attention.py:53"}[name]
+            "flash_attention": "flash_attention/flash_attention.py:53",
+            "ssd_scan": "ssd_scan/ssd_scan.py:31"}[name]
     return dict(name=name, route="cuda",
                 source=f"src/repro_torch/csrc/{name}.cu",
                 replaces=f"src/repro/kernels/{file}", shape=shape,
@@ -345,7 +367,91 @@ def phase_kernels(failures):
                     "operations" if t_ops >= t_bytes else "bytes", lib_ms)
             del q, k, v, got, want
     torch.cuda.empty_cache()
+    _ssd_cases(failures, rows, dev, gen)
+    torch.cuda.empty_cache()
     return rows
+
+
+# ssd_scan on the mamba2 path (48 heads of 64, d_state 128, chunk 128):
+# (case, batch, length, dtype, init_state)
+SSD_CASES = [
+    ("shared prefill 1x1024", 1, 1024, "float32", False),
+    ("launcher prefill 4x1024", 4, 1024, "float32", False),
+    ("independent prefill 4x1088", 4, 1088, "float32", False),
+    ("init_state 1x1024", 1, 1024, "float32", True),
+    ("shared prefill 1x1024", 1, 1024, "bfloat16", False),
+    ("launcher prefill 4x1024", 4, 1024, "bfloat16", False),
+    ("independent prefill 4x1088", 4, 1088, "bfloat16", False),
+]
+
+
+def _ssd_inputs(dev, gen, b, l, dtype, h=48, p=64, n=128):
+    """What ``ssm_full`` feeds the scan at mamba2-780m width: x * dt, dA =
+    dt * A with dt = softplus(noise) and A = -(1..h) (``A_log`` = log(1..h)
+    at init), B and C; x, B, C in the activations' dtype."""
+    import torch
+    import torch.nn.functional as F
+    dt = F.softplus(torch.randn((b, l, h), device=dev, generator=gen))
+    A = -torch.arange(1, h + 1, device=dev, dtype=torch.float32)
+    x = (torch.randn((b, l, h, p), device=dev, generator=gen)
+         * dt[..., None]).to(dtype)
+    B, C = (torch.randn((b, l, n), device=dev, generator=gen).to(dtype)
+            for _ in range(2))
+    return x, dt * A, B, C
+
+
+def _ssd_cases(failures, rows, dev, gen):
+    """The SSD kernel (one launch over every (b, c, h) tile) against its
+    plain tiles, and the whole wrapper (padding, init_state, recurrence)
+    against ``ssd_chunked_ref``."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.ssd_scan.ops import (ssd_chunked_kernel,
+                                                  ssd_intra_chunk)
+    from repro_torch.kernels.ssd_scan.ref import (ssd_chunked_ref,
+                                                  ssd_tiles_ref)
+    Q = 128
+    for case, b, l, dn, init in SSD_CASES:
+        dtype = getattr(torch, dn)
+        x, dA, B, C = _ssd_inputs(dev, gen, b, l, dtype)
+        s0 = (0.1 * torch.randn((b, 48, 64, 128), device=dev, generator=gen)
+              if init else None)
+        pad = -l % Q
+        xp = F.pad(x, (0, 0, 0, 0, 0, pad))
+        dAp = F.pad(dA, (0, 0, 0, pad))
+        Bp, Cp = (F.pad(t, (0, 0, 0, pad)) for t in (B, C))
+        G = b * (l + pad) // Q * 48
+        # the causal pairs j <= i only: Q(Q+1)/2 of them, each an N-long
+        # dot for S and a P-long update of y, plus the chunk state's 2QPN
+        flops = G * (Q * (Q + 1) * (128 + 64) + 2 * Q * 64 * 128)
+        nbytes = ((xp.numel() + Bp.numel() + Cp.numel()) * xp.element_size()
+                  + 4 * dAp.numel() + 4 * (xp.numel() + G * 64 * 128))
+        t_ops = flops / PEAK_FLOPS["float32"]
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        bound = max(t_ops, t_bytes) * 1e3
+        if not init:
+            got = ssd_intra_chunk(xp, dAp, Bp, Cp, Q)
+            want = ssd_tiles_ref(xp, dAp, Bp, Cp, Q)
+            ms = time_ms(lambda: ssd_intra_chunk(xp, dAp, Bp, Cp, Q), 20)
+            plain = time_ms(lambda: ssd_tiles_ref(xp, dAp, Bp, Cp, Q), 3)
+            tcase = f"tiles {case} G={G}"
+            extra = (f"ms={ms:.6g} plain_ms={plain:.6g} "
+                     f"bound_ms={bound:.6g} library_ms=none")
+            errs = [_check(failures, "ssd_scan", f"{tcase} {out}", dn, g, w,
+                           extra) for out, g, w in zip(("y", "st"), got, want)]
+            if case.startswith("shared") and dn == "float32":
+                rows["ssd_scan"] = _kernel_row(
+                    "ssd_scan", f"{tcase} f32", max(errs), ms, plain, bound,
+                    "operations" if t_ops >= t_bytes else "bytes", None)
+            del got, want
+        got = ssd_chunked_kernel(x, dA, B, C, Q, s0)
+        want = ssd_chunked_ref(x, dA, B, C, Q, s0)
+        wms = time_ms(lambda: ssd_chunked_kernel(x, dA, B, C, Q, s0), 5)
+        for out, g, w in zip(("y", "state"), got, want):
+            _check(failures, "ssd_scan", f"wrapper {case} {out}", dn, g, w,
+                   f"wrapper_ms={wms:.6g}",
+                   tol_key="ssd_scan y" if out == "y" else None)
+        del got, want, xp, Bp, Cp
 
 
 def _randomize_zero_init(module, gen):
@@ -358,16 +464,28 @@ def _randomize_zero_init(module, gen):
                 p.normal_(0.0, 0.02, generator=gen)
 
 
-# the two serving paths: slice 1's DDIM path and DPM-Solver++(2M) with the
-# shared-uncond CFG (one uncond row per group in the branch phase)
+# the serving paths: slice 1's DDIM path and DPM-Solver++(2M) with the
+# shared-uncond CFG (one uncond row per group in the branch phase), both
+# through SageServingEngine.step(); and the AR shared-prefix path on
+# mamba2-780m (launcher at batch 4, then 2 groups of 4 with a 1024-token
+# shared prefix and 64-token tails)
 PATHS = {"ddim": dict(total_steps=30),
          "dpmpp": dict(total_steps=30, sampler="dpmpp",
-                       shared_uncond_cfg=True)}
+                       shared_uncond_cfg=True),
+         "mamba2": dict(arch="mamba2-780m", batch=4, prompt_len=1024,
+                        gen=32, groups=2, members=4, tail=64)}
+DIT_PATHS = ("ddim", "dpmpp")
 # kernels each path must launch; "never" must stay at 0 launches
 PATH_KERNELS = {"ddim": dict(needs=("flash_attention", "ddim_step"),
-                             never=("dpmpp_step", "group_mean")),
+                             never=("dpmpp_step", "group_mean", "ssd_scan")),
                 "dpmpp": dict(needs=("flash_attention", "dpmpp_step",
-                                     "group_mean"), never=("ddim_step",))}
+                                     "group_mean"),
+                              never=("ddim_step", "ssd_scan")),
+                "mamba2": dict(needs=("ssd_scan",),
+                               never=("flash_attention", "ddim_step",
+                                      "dpmpp_step", "group_mean"))}
+KERNELS = ("flash_attention", "ddim_step", "dpmpp_step", "group_mean",
+           "ssd_scan")
 
 
 def _counters():
@@ -376,10 +494,12 @@ def _counters():
     from repro_torch.kernels.dpmpp_step.ops import fused_cfg_dpmpp_step
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.group_mean.ops import masked_group_mean
+    from repro_torch.kernels.ssd_scan.ops import ssd_chunked_kernel
     return {"flash_attention": flash_attention,
             "ddim_step": fused_cfg_ddim_step,
             "dpmpp_step": fused_cfg_dpmpp_step,
-            "group_mean": masked_group_mean}
+            "group_mean": masked_group_mean,
+            "ssd_scan": ssd_chunked_kernel}
 
 
 def _build_modules(cfg, tc, device, vae_dtype, seed=0):
@@ -445,6 +565,11 @@ def _serve(engine, prompts, path, failures):
         if c.image.shape != (512, 512, 3) or not np.isfinite(c.image).all():
             failures.append(f"e2e {path}: image of {c.prompt!r} has shape "
                             f"{c.image.shape} or non-finite values")
+    _check_path_kernels(path, launches, failures)
+    return launches
+
+
+def _check_path_kernels(path, launches, failures):
     for name in PATH_KERNELS[path]["needs"]:
         if launches[name] <= 0:
             failures.append(f"e2e {path}: kernel {name} never launched")
@@ -452,7 +577,6 @@ def _serve(engine, prompts, path, failures):
         if launches[name]:
             failures.append(f"e2e {path}: kernel {name} launched "
                             f"{launches[name]} times off its path")
-    return launches
 
 
 def phase_end_to_end(failures):
@@ -477,7 +601,7 @@ def phase_end_to_end(failures):
         f"{tc.n_layers}; set-up {time.perf_counter() - t0:.2f} s")
     prompts = [p for pair in zip(*THEMES) for p in pair]
     launches = {}
-    for path in PATHS:
+    for path in DIT_PATHS:
         engine = _engine(modules, path, dev)
         launches[path] = _serve(engine, prompts, path, failures)
         _profile_step(engine, prompts, path)
@@ -485,19 +609,26 @@ def phase_end_to_end(failures):
 
 
 def _profile_step(engine, prompts, path):
-    """The same step once more under torch.profiler: device time by kernel
-    and the device's busy share of the step (the counted run above is
-    untraced)."""
+    """The same step once more under torch.profiler (the counted run above
+    is untraced)."""
+    engine.submit(prompts)
+    _profile(path, engine.step, ("ddim_step_kernel", "dpmpp_step_kernel",
+                                 "group_mean_kernel"))
+
+
+def _profile(label, fn, highlight=()):
+    """``fn()`` once under torch.profiler: device time by kernel, the top
+    ten and any ``highlight`` kernel wherever it ranks, and the device's
+    busy share of the traced wall time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    engine.submit(prompts)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        engine.step()
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
 
@@ -508,24 +639,228 @@ def _profile_step(engine, prompts, path):
                    if e.device_type == DeviceType.CUDA and dev_us(e) > 0),
                   reverse=True)
     busy = sum(r[0] for r in rows) / 1e6
-    log(f"[profile:{path}] traced step wall_s={wall:.3f} device_busy_s="
+    log(f"[profile:{label}] traced wall_s={wall:.3f} device_busy_s="
         f"{busy:.3f} busy_share={busy / wall:.3f} kernels={len(rows)}")
-    for us, n, key in rows[:10]:
-        log(f"[profile:{path}]   {us / 1e3:10.2f} ms {us / 1e4 / busy:5.1f}% "
-            f"x{n:<6d} {key[:90]}")
-    for us, n, key in rows[10:]:      # the step kernels, wherever they rank
-        if any(k in key for k in ("ddim_step_kernel", "dpmpp_step_kernel",
-                                  "group_mean_kernel")):
-            log(f"[profile:{path}]   {us / 1e3:10.2f} ms "
+    for i, (us, n, key) in enumerate(rows):
+        if i < 10 or any(k in key for k in highlight):
+            log(f"[profile:{label}]   {us / 1e3:10.2f} ms "
                 f"{us / 1e4 / busy:5.1f}% x{n:<6d} {key[:90]}")
 
 
+def _group_tokens(rng, vocab, groups, members, prefix, tail):
+    """Each group's requests as examples/shared_prefill_llm.py builds them:
+    one shared prefix repeated per member, then each member's own tail."""
+    import numpy as np
+    for _ in range(groups):
+        shared = rng.randint(0, vocab, (1, prefix))
+        yield np.concatenate([shared.repeat(members, 0),
+                              rng.randint(0, vocab, (members, tail))], 1)
+
+
+def _expected_steps(tokens):
+    """P + N (S - P) against N S, with P the rows' common prefix found
+    here with numpy alone (clamped to leave a token to catch up), as
+    ``serving/shared_prefill.py:shared_prefix_prefill`` of the JAX package
+    counts them."""
+    import numpy as np
+    N, S = tokens.shape
+    differ = np.nonzero((tokens != tokens[:1]).any(axis=0))[0]
+    P = max(1, min(int(differ[0]) if len(differ) else S, S - 1))
+    ours = P + N * (S - P)
+    return {"prefix_len": P, "token_steps": ours,
+            "token_steps_naive": N * S, "saving": 1.0 - ours / (N * S)}
+
+
+def _as_dtype(model, dtype):
+    """The same weights run with other activations (``cfg.dtype``)."""
+    from repro_torch.config import replace
+    model.cfg = replace(model.cfg, dtype=dtype)
+    return model
+
+
+def phase_mamba2(failures):
+    """The AR shared-prefix path at full mamba2-780m width (random weights
+    from seed 0).  Launch counts are set to 0 just before the path's runs
+    and read just after; the comparisons with independent prefills come
+    after that.  Returns the path's launch counts."""
+    import numpy as np
+    import torch
+    from repro_torch.config import get_config
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serving.kvcache import fork_model_cache
+    from repro_torch.serving.shared_prefill import shared_prefix_prefill
+
+    dev = torch.device("cuda:0")
+    spec = PATHS["mamba2"]
+    cfg = get_config(spec["arch"])
+    gc.collect()                  # the DiT phases' modules, held in cycles
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    model = tfm.LM(cfg, device=dev,
+                   generator=torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    s = cfg.ssm
+    log(f"[e2e:mamba2] {cfg.name}: {cfg.n_layers} ssm layers d_model "
+        f"{cfg.d_model} d_inner {s.expand * cfg.d_model} heads "
+        f"{s.expand * cfg.d_model // s.head_dim} x {s.head_dim} d_state "
+        f"{s.d_state} chunk {s.chunk} vocab {cfg.vocab} dtype {cfg.dtype}; "
+        f"{n_params / 1e6:.1f} M params; set-up "
+        f"{time.perf_counter() - t0:.2f} s; allocated before it "
+        f"{held / 2 ** 30:.3f} GiB")
+    per_prefill = cfg.n_layers            # one ssd_scan launch per layer
+    counters = _counters()
+    for fn in counters.values():
+        fn.launches = 0
+    ssd = counters["ssd_scan"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    for shared in (False, True):
+        before = ssd.launches
+        r = serve(spec["arch"], batch=spec["batch"],
+                  prompt_len=spec["prompt_len"], gen=spec["gen"],
+                  shared_prefix=shared, device=dev, model=model)
+        n = ssd.launches - before
+        log(f"[e2e:mamba2] launcher shared_prefix={shared}: prefill_s="
+            f"{r['prefill_s']:.4f} decode_s={r['decode_s']:.4f} "
+            f"decode_tok_s={r['decode_tok_s']:.1f} cache_mib="
+            f"{r['cache_bytes'] / 2 ** 20:.2f} token_steps="
+            f"{r['token_steps']} ssd_launches={n}")
+        if n != per_prefill:
+            failures.append(f"e2e mamba2 launcher: {n} ssd_scan launches "
+                            f"for one prefill, not {per_prefill}")
+        if (r["tokens"].shape != (spec["batch"], spec["gen"])
+                or not torch.isfinite(r["logits"]).all()):
+            failures.append("e2e mamba2 launcher: tokens of the wrong shape "
+                            "or non-finite logits")
+
+    rng = np.random.RandomState(0)
+    prefix, tail = spec["prompt_len"], spec["tail"]
+    groups = list(_group_tokens(rng, cfg.vocab, spec["groups"],
+                                spec["members"], prefix, tail))
+    max_len = prefix + tail + spec["gen"] + 8
+    timing = {"prefill_s": 0.0, "catch_up_s": 0.0, "decode_s": 0.0}
+
+    def prefill_fn(t, m):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = tfm.prefill(model, t, max_len=m)
+        torch.cuda.synchronize()
+        timing["prefill_s"] += time.perf_counter() - t1
+        return out
+
+    def decode_fn(c, t, p):
+        return tfm.decode_step(model, c, t, p)
+
+    caught_up = []
+    for g, tokens in enumerate(groups):
+        before = ssd.launches
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        logits, caches, pos, stats = shared_prefix_prefill(
+            prefill_fn, decode_fn, tokens, max_len)
+        torch.cuda.synchronize()
+        timing["catch_up_s"] += time.perf_counter() - t1
+        n = ssd.launches - before
+        caught_up.append(logits.float())
+        tok = logits.argmax(dim=-1)
+        t1 = time.perf_counter()
+        for i in range(spec["gen"]):
+            logits, caches = tfm.decode_step(model, caches, tok, pos + i)
+            tok = logits.argmax(dim=-1)
+        torch.cuda.synchronize()
+        timing["decode_s"] += time.perf_counter() - t1
+        want = _expected_steps(tokens)
+        log(f"[e2e:mamba2] group {g}: {tokens.shape[0]} x {tokens.shape[1]} "
+            f"tokens, prefix_len={stats['prefix_len']} token_steps="
+            f"{stats['token_steps']} naive={stats['token_steps_naive']} "
+            f"saving={stats['saving']:.4f} (expected {want}) "
+            f"ssd_launches={n} logits_finite="
+            f"{bool(torch.isfinite(logits).all())}")
+        if stats != want:
+            failures.append(f"e2e mamba2 group {g}: counts {stats} != "
+                            f"{want}")
+        if n != per_prefill:
+            failures.append(f"e2e mamba2 group {g}: {n} ssd_scan launches "
+                            f"for one trunk prefill, not {per_prefill}")
+        if not torch.isfinite(logits).all():
+            failures.append(f"e2e mamba2 group {g}: non-finite logits")
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated(dev)
+    n_groups, members = spec["groups"], spec["members"]
+    dec_tok = n_groups * members * spec["gen"]
+    log(f"[e2e:mamba2] shared_prefix_prefill over {n_groups} groups: trunk "
+        f"prefill_s={timing['prefill_s']:.4f} (2 x 1 x {prefix}) "
+        f"prefill+catch_up_s={timing['catch_up_s']:.4f} decode "
+        f"{dec_tok} tokens in {timing['decode_s']:.4f} s = "
+        f"{dec_tok / timing['decode_s']:.1f} tok/s")
+    log(f"[e2e:mamba2] peak_mem_gib={peak / 2 ** 30:.3f} (of which held "
+        f"before the path {held / 2 ** 30:.3f}) kernel_launches={launches}")
+    _check_path_kernels("mamba2", launches, failures)
+    if launches["ssd_scan"] != per_prefill * (2 + n_groups):
+        failures.append(f"e2e mamba2: {launches['ssd_scan']} ssd_scan "
+                        f"launches, not {per_prefill} x {2 + n_groups} "
+                        f"prefill calls")
+
+    # lossless sharing: each group's forked-and-caught-up logits against
+    # an independent prefill of the same tokens.  In bf16 the bound is
+    # bf16's own error there: twice the independent prefill's largest
+    # difference from the same prefill in f32 (dt and the projections are
+    # rounded to 8 bits, and 48 random layers carry that far).  In f32 the
+    # two must agree within 1e-3 of the logits' largest magnitude.
+    for g, tokens in enumerate(groups):
+        ind, _ = tfm.prefill(model, tokens)
+        m32 = _as_dtype(model, "float32")
+        ind32, _ = tfm.prefill(m32, tokens)
+        sh32 = shared_prefix_prefill(
+            lambda t, m: tfm.prefill(m32, t, max_len=m),
+            lambda c, t, p: tfm.decode_step(m32, c, t, p), tokens,
+            max_len)[0].float()
+        _as_dtype(model, cfg.dtype)
+        ind, ind32 = ind.float(), ind32.float()
+        err = (caught_up[g] - ind).abs().max().item()
+        noise = (ind - ind32).abs().max().item()
+        err32 = (sh32 - ind32).abs().max().item()
+        top = ind32.abs().max().item()
+        ok = err <= 2 * noise and err32 <= 1e-3 * top
+        log(f"[check] mamba2 shared vs independent logits, group {g}: bf16 "
+            f"max_abs_err={err:.4e} (bf16 vs f32 {noise:.4e}, tol 2x); f32 "
+            f"max_abs_err={err32:.4e} (tol 1e-3 x |logits| max {top:.3f}) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"mamba2 group {g}: shared vs independent logits "
+                            f"differ: bf16 {err:.3e} (2 x {noise:.3e}), f32 "
+                            f"{err32:.3e} ({1e-3 * top:.3e})")
+        del ind, ind32, sh32
+
+    prompt = groups[0][:1, :prefix]
+    _profile("mamba2 trunk prefill 1x1024",
+             lambda: tfm.prefill(model, prompt), ("ssd_intra_chunk",))
+    _, trunk = tfm.prefill(model, prompt)
+    cache0 = fork_model_cache(trunk, members)
+    tok0 = torch.zeros((members, 1), dtype=torch.long, device=dev)
+
+    def decode_loop():
+        c, tok = cache0, tok0
+        for i in range(spec["gen"]):
+            lg, c = tfm.decode_step(model, c, tok, prefix + i)
+            tok = lg.argmax(dim=-1)
+    _profile(f"mamba2 decode {spec['gen']} steps x {members}", decode_loop)
+    del model, trunk, cache0
+    torch.cuda.empty_cache()
+    return launches
+
+
 def phase_reference(failures):
-    """Each path's engine at smoke size on the card (kernels) and on the CPU
-    (plain versions), same weights and noise: equal groups, NFE and launch
-    ledger, images within 1e-3 (f32; the first step divides by alpha_T ~
-    1e-4, which magnifies last-bit differences on elements inside the x0
-    clip)."""
+    """Each DiT path's engine at smoke size on the card (kernels) and on the
+    CPU (plain versions), same weights and noise: equal groups, NFE and
+    launch ledger, images within 1e-3 (f32; the first step divides by
+    alpha_T ~ 1e-4, which magnifies last-bit differences on elements inside
+    the x0 clip).  Then the mamba2 path the same way."""
     import numpy as np
     import torch
     from repro_torch.config import get_config, replace
@@ -539,7 +874,7 @@ def phase_reference(failures):
     cpu_mods = _build_modules(cfg, tc, torch.device("cpu"), torch.float32)
     for g, c in zip(gpu_mods, cpu_mods):
         c.load_state_dict(g.state_dict())
-    for path in PATHS:
+    for path in DIT_PATHS:
         gpu = _engine(gpu_mods, path, torch.device("cuda:0"))
         cpu = _engine(cpu_mods, path, torch.device("cpu"))
         out = []
@@ -560,6 +895,50 @@ def phase_reference(failures):
         if not ok:
             failures.append(f"reference {path}: card vs cpu differ "
                             f"(same={same}, err={err:.3e})")
+    _reference_mamba2(failures)
+
+
+def _reference_mamba2(failures):
+    """The LM at mamba2-smoke in f32 on the card (kernel) and on the CPU
+    (plain tiles), same weights: ``shared_prefix_prefill`` over one group
+    (a 40-token prefix, ragged against the 32-token chunk, and 9-token
+    tails) and the launcher's shared-prefix mode.  Counts and greedy tokens
+    equal, logits within 1e-4 (the f32 tolerance of the JAX kernel sweep:
+    the kernel sums in another order than the plain tiles)."""
+    import numpy as np
+    import torch
+    from repro_torch.config import get_config, replace
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serving.shared_prefill import shared_prefix_prefill
+
+    cfg = replace(get_config("mamba2-780m", smoke=True), dtype="float32")
+    gpu = tfm.LM(cfg, device="cuda:0",
+                 generator=torch.Generator(device="cuda:0").manual_seed(1))
+    cpu = tfm.LM(cfg, device="cpu")
+    cpu.load_state_dict(gpu.state_dict())
+    tokens = next(_group_tokens(np.random.RandomState(1), cfg.vocab, 1, 3,
+                                40, 9))
+    out = []
+    for model in (gpu, cpu):
+        logits, _, _, stats = shared_prefix_prefill(
+            lambda t, m: tfm.prefill(model, t, max_len=m),
+            lambda c, t, p: tfm.decode_step(model, c, t, p), tokens, 64)
+        r = serve("mamba2-780m", smoke=True, batch=3, prompt_len=40, gen=8,
+                  shared_prefix=True, device=model.device, model=model)
+        out.append((logits.cpu(), stats, r["logits"].cpu(), r["tokens"],
+                    r["token_steps"]))
+    (lg, st, rl, rt, rs), (lc, sc, rlc, rtc, rsc) = out
+    same = st == sc and rs == rsc and np.array_equal(rt, rtc)
+    err = max((lg - lc).abs().max().item(), (rl - rlc).abs().max().item())
+    ok = same and err <= 1e-4 * (1 + max(lc.abs().max().item(),
+                                         rlc.abs().max().item()))
+    log(f"[reference:mamba2] smoke LM card vs cpu: counts/tokens "
+        f"{'equal' if same else 'DIFFER'} ({st}), logits max_abs_err="
+        f"{err:.3e} tol=1e-4 {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"reference mamba2: card vs cpu differ (same={same},"
+                        f" err={err:.3e})")
 
 
 def main() -> int:
@@ -590,6 +969,7 @@ def main() -> int:
     rows = phase_kernels(failures)
     t2 = time.perf_counter()
     launches = phase_end_to_end(failures)
+    launches["mamba2"] = phase_mamba2(failures)
     t3 = time.perf_counter()
     phase_reference(failures)
     t4 = time.perf_counter()
@@ -600,7 +980,7 @@ def main() -> int:
             print(f"chip_smoke FAILED: {f}", file=sys.stderr)
         return 1
     kernels = []
-    for name in ("flash_attention", "ddim_step", "dpmpp_step", "group_mean"):
+    for name in KERNELS:
         row = rows[name]
         row["launches"] = sum(n[name] for n in launches.values())
         row["launches_by_path"] = {path: n[name]

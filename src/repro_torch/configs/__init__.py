@@ -1,2 +1,2 @@
 """Registered model configs (importing this package registers them)."""
-from repro_torch.configs import sage_dit  # noqa: F401
+from repro_torch.configs import mamba2_780m, sage_dit  # noqa: F401

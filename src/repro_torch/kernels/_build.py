@@ -23,7 +23,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("ddim_step.cu", "dpmpp_step.cu", "flash_attention.cu",
-           "group_mean.cu")
+           "group_mean.cu", "ssd_scan.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
@@ -46,6 +46,9 @@ SIGNATURES = {
                              _I, _I, _I, _P),
     # x, mask, out, K, N, F, dtype, stream
     "sage_group_mean": (_P, _P, _P, _I, _I, _LL, _I, _P),
+    # x, dA, B, C, y, states, batch, chunks, heads, Q, P, N, dtype, stream
+    "sage_ssd_intra_chunk": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                             _I, _I, _P),
 }
 
 #: seconds the last build took (0.0 when a cached library was loaded)

@@ -1,7 +1,7 @@
 """Kernel backend dispatch — one switch between the plain PyTorch math,
 the chunked online-softmax loop and the hand-written CUDA kernels
 (attention, the fused CFG+DDIM and CFG+DPM-Solver++(2M) steps, the masked
-group mean).
+group mean, the Mamba2 SSD scan).
 
 Routing follows the TENSOR's device, never what is installed: on a CUDA
 tensor the ``kernel`` / ``fused`` routes launch the kernel or raise; on a
@@ -25,6 +25,7 @@ from repro_torch.kernels.flash_attention.ops import (MAX_HEAD_DIM,
                                                      flash_attention)
 from repro_torch.kernels.group_mean.ops import masked_group_mean
 from repro_torch.kernels.group_mean.ref import masked_group_mean_ref
+from repro_torch.kernels.ssd_scan.ops import ssd_chunked_kernel
 from repro_torch.models.layers import attend, attend_chunked, causal_mask
 
 ATTN_IMPLS = ("naive", "chunked", "kernel")
@@ -101,3 +102,13 @@ def group_mean(x: torch.Tensor, mask: torch.Tensor, *,
     if impl == "kernel":
         return masked_group_mean(x, mask)
     return masked_group_mean_ref(x, mask)
+
+
+def ssd(x: torch.Tensor, dA: torch.Tensor, B_: torch.Tensor,
+        C_: torch.Tensor, chunk: int,
+        init_state: Optional[torch.Tensor] = None):
+    """The Mamba2 SSD scan (``models.ssm.ssd_chunked``'s contract): on a
+    CUDA tensor the intra-chunk kernel, launched or raising; on a CPU tensor
+    its plain tile.  The JAX config has no switch for it, and neither does
+    the port's: every ``ssm_full`` goes through here."""
+    return ssd_chunked_kernel(x, dA, B_, C_, chunk, init_state)

@@ -1,0 +1,109 @@
+"""Serving launcher: batched decode loop (prefill -> N greedy decode steps
+with the state cache), reporting tokens/s and cache bytes — plus the SAGE
+shared-prefix mode (one trunk prefill, forked to the batch).
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-780m \\
+        [--smoke] [--batch 4 --prompt-len 64 --gen 32] [--shared-prefix] \\
+        [--device cpu]
+
+The device defaults to CUDA and raises without a GPU.  The weights are
+random, drawn from seed 0; the prompts come from numpy's
+``RandomState(0)``, as in the JAX launcher, so both see the same tokens.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.config import get_config
+from repro_torch.models import transformer as tfm
+from repro_torch.serving.kvcache import cache_bytes, fork_model_cache
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def serve(arch: str = "mamba2-780m", *, smoke: bool = False, batch: int = 4,
+          prompt_len: int = 64, gen: int = 32, shared_prefix: bool = False,
+          device="cuda", model: Optional[tfm.LM] = None) -> Dict:
+    """One prefill and ``gen`` greedy decode steps over ``batch`` requests.
+    ``model`` reuses weights already on the device (else they are drawn
+    from seed 0, as the JAX launcher draws its own from ``PRNGKey(0)``).
+    Returns counts and host-clock times, each ending in a device sync:
+    ``prefill_s``, ``decode_s``, ``decode_tok_s``, ``cache_bytes``,
+    ``token_steps``, and the generated ``tokens`` (batch, gen) with the last
+    ``logits`` (batch, 1, V)."""
+    dev = resolve_device(device)
+    cfg = get_config(arch, smoke=smoke)
+    if model is None:
+        model = tfm.LM(cfg, device=dev,
+                       generator=torch.Generator(device=dev).manual_seed(0))
+    rng = np.random.RandomState(0)
+    max_len = prompt_len + gen + 8
+
+    _sync(dev)
+    t0 = time.perf_counter()
+    if shared_prefix:            # SAGE analogue: one trunk, fork, decode
+        prompt = rng.randint(0, cfg.vocab, (1, prompt_len))
+        logits, trunk = tfm.prefill(model, prompt, max_len=max_len)
+        cache = fork_model_cache(trunk, batch)
+        steps_cost = prompt_len + batch * gen
+    else:
+        prompts = rng.randint(0, cfg.vocab, (batch, prompt_len))
+        logits, cache = tfm.prefill(model, prompts, max_len=max_len)
+        steps_cost = batch * (prompt_len + gen)
+    _sync(dev)
+    t_prefill = time.perf_counter() - t0
+
+    tok = logits[:, -1:].argmax(dim=-1)
+    if tok.shape[0] == 1 and batch > 1:
+        tok = tok.repeat_interleave(batch, dim=0)
+    out = []
+    t0 = time.perf_counter()
+    for i in range(gen):
+        logits, cache = tfm.decode_step(model, cache, tok, prompt_len + i)
+        tok = logits.argmax(dim=-1)
+        out.append(tok)
+    _sync(dev)
+    t_decode = time.perf_counter() - t0
+    return {"arch": cfg.name, "batch": batch, "prompt_len": prompt_len,
+            "gen": gen, "shared_prefix": shared_prefix, "device": str(dev),
+            "prefill_s": t_prefill, "decode_s": t_decode,
+            "decode_tok_s": batch * gen / max(t_decode, 1e-9),
+            "cache_bytes": cache_bytes(cache), "token_steps": steps_cost,
+            "tokens": torch.cat(out, dim=1).cpu().numpy() if out else
+            np.zeros((batch, 0), np.int64),
+            "logits": logits}
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="mamba2-780m")
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=64)
+    ap.add_argument("--gen", type=int, default=32)
+    ap.add_argument("--shared-prefix", action="store_true")
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+    r = serve(args.arch, smoke=args.smoke, batch=args.batch,
+              prompt_len=args.prompt_len, gen=args.gen,
+              shared_prefix=args.shared_prefix, device=args.device)
+    print(f"arch={r['arch']} batch={r['batch']} prompt={r['prompt_len']} "
+          f"gen={r['gen']} shared_prefix={r['shared_prefix']} "
+          f"device={r['device']}")
+    print(f"prefill {r['prefill_s']:.2f}s | decode {r['decode_s']:.2f}s "
+          f"({r['decode_tok_s']:.1f} tok/s) | "
+          f"cache {r['cache_bytes'] / 2 ** 20:.1f} MiB | "
+          f"token-steps {r['token_steps']}")
+
+
+if __name__ == "__main__":
+    main()

@@ -5,7 +5,8 @@ The JAX package keeps parameters as nested dicts (``dit.init_params``,
 ``text_encoder.init_text``, ``vae.init_params``); hand them over as
 ``jax.tree.map(np.asarray, params)``.  The bridge itself imports no JAX:
 
-* nested dict keys become dotted module paths (``blocks.attn.wq`` ...);
+* nested dict keys and list indices become dotted module paths
+  (``blocks.attn.wq``, ``prefix.0.ln1`` ...);
 * the stacked leading ``blocks`` axis that ``jax.vmap(init_block)`` builds
   is split into one entry per ``nn.ModuleList`` layer;
 * VAE conv weights go from HWIO to OIHW for ``F.conv2d``.
@@ -23,6 +24,7 @@ from torch import nn
 from repro_torch.config import ModelConfig
 from repro_torch.models.dit import DiT
 from repro_torch.models.text_encoder import TextTower
+from repro_torch.models.transformer import LM
 from repro_torch.models.vae import VAEDecoder
 
 
@@ -31,6 +33,8 @@ def _flatten(tree: Mapping, prefix: str = ""
     for k, v in tree.items():
         if isinstance(v, Mapping):
             yield from _flatten(v, f"{prefix}{k}.")
+        elif isinstance(v, (list, tuple)):
+            yield from _flatten(dict(enumerate(v)), f"{prefix}{k}.")
         else:
             yield f"{prefix}{k}", np.asarray(v)
 
@@ -93,4 +97,14 @@ def vae_from_jax(params: Mapping, *, device="cuda",
                        dtype=dtype)
     load_numpy(model, {f"dec.{k}": v.transpose(3, 2, 0, 1)
                        for k, v in dec.items()})
+    return model
+
+
+def lm_from_jax(params: Mapping, cfg: ModelConfig, *, device="cuda") -> LM:
+    """An :class:`LM` holding ``transformer.init_params`` weights:
+    ``embed``, ``ln_f``, the ``prefix`` / ``suffix`` layer lists (empty for
+    mamba2), the stacked ``blocks`` split per layer, and ``head`` unless the
+    embeddings are tied."""
+    model = LM(cfg, device=device)
+    load_numpy(model, _unstack_blocks(dict(_flatten(params))))
     return model
