@@ -8,11 +8,17 @@ without the result line:
 
 1. build — compile the CUDA kernels under ``src/repro_torch/csrc`` with
    nvcc for sm_90a (``repro_torch.kernels._build``) and print ptxas's
-   register / spill report;
+   register / spill report; for the tensor-core flash kernel
+   (``flash_attention_sm90.cu``), per head-dim width, its registers,
+   spills, dynamic shared memory and the count of HGMMA (wgmma)
+   instructions in ``cuobjdump -sass`` of the library, which must not be 0;
 2. kernel vs plain — every kernel of the serving paths against its plain
    PyTorch version (``ref.py``) on the card at the main paths' shapes, in
    f32 and bf16, each error beside its tolerance, with the kernel's, the
-   plain version's and (for attention) the library's time;
+   plain version's and (for attention) the library's time.  Flash in bf16
+   runs the sm90 kernel, also at the shapes its padding and masking can
+   get wrong, each beside the CUDA-core kernel's time at the same shape
+   and its achieved TFLOP/s;
 3. end to end, DiT — for each diffusion serving path (``DIT_PATHS``: 30
    DDIM steps, and 30 DPM-Solver++(2M) steps with the shared-uncond CFG),
    one ``SageServingEngine.step()`` at the full ``sage-dit`` width (28
@@ -21,8 +27,13 @@ without the result line:
    for both) over 8 prompts from 2 themes, group_size 4, on the kernel
    routes, with every launch count set to 0 just before and read just
    after; every image must be finite, every kernel of the path launched
-   and no kernel off it.  Each step then runs once more under
-   ``torch.profiler`` for device time by kernel and the busy share;
+   and no kernel off it, and every bf16 flash launch (self + cross a
+   layer a step) on the sm90 route, the f32 text tower's on the CUDA
+   cores.  Each step then runs once more under ``torch.profiler`` for
+   device time by kernel and the busy share.  Then one DiT forward on the
+   CFG pair (batch 16) through the kernel, through plain attention in
+   bf16 and in f32: the kernel's mean error against f32 must stay within
+   1.25x the plain bf16 route's;
 4. end to end, ``mamba2`` — the AR shared-prefix path at the full
    ``mamba2-780m`` width (48 SSD layers, d_model 1536, 48 heads of 64,
    d_state 128, vocab 50280, bf16 activations): the launcher
@@ -66,8 +77,12 @@ PEAK_FLOPS = {"float32": 67e12,    # f32 outside the tensor cores
 # py); the whole wrapper's y is rounded once to x's dtype, which in bf16
 # may flip that rounding by one ulp: two bf16 ulps, 2^-6 of (1 + |y|).
 # Both flash paths accumulate in f32, so f32 differs
-# by summation order only; in bf16 the output is rounded once to 8 bits of
-# mantissa (one ulp of |o| <= 4 is 1.6e-2).
+# by summation order only.  bf16 is held at 1e-2, not the JAX tests' 4e-2:
+# a self-attention output over ~1024 keys is ~0.04 in size, so 4e-2 of
+# (1 + |o|) would pass a kernel with a wrong scale or a dropped key tile;
+# 1e-2 is a quarter of that size.  The sm90 kernel rounds P to bf16 before
+# P V (2^-9 relative, averaged over the keys) and the output once to 8 bits
+# of mantissa (one ulp of |o| < 2 is 7.8e-3, inside 1e-2 * (1 + |o|)).
 # group mean: f32 sums of 4 products in another order than torch's
 # reduction differ by a few ulp (~1e-6 here); in bf16 such a last-bit
 # difference can flip the one rounding of the output by one bf16 ulp, at
@@ -76,7 +91,7 @@ TOL = {("ddim_step", "float32"): 1e-5, ("ddim_step", "bfloat16"): 3e-2,
        ("dpmpp_step", "float32"): 1e-5, ("dpmpp_step", "bfloat16"): 3e-2,
        ("group_mean", "float32"): 1e-5, ("group_mean", "bfloat16"): 1e-2,
        ("flash_attention", "float32"): 2e-4,
-       ("flash_attention", "bfloat16"): 4e-2,
+       ("flash_attention", "bfloat16"): 1e-2,
        ("ssd_scan", "float32"): 1e-4, ("ssd_scan", "bfloat16"): 1e-4,
        ("ssd_scan y", "float32"): 1e-4, ("ssd_scan y", "bfloat16"): 2.0 ** -6}
 
@@ -127,7 +142,7 @@ def time_ms(fn, iters: int, reps: int = 3) -> float:
     return ms
 
 
-def phase_build():
+def phase_build(failures):
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
     lib = _build.build()
@@ -144,7 +159,62 @@ def phase_build():
             log(f"[build]   {name}: {len(regs)} kernels, registers "
                 f"{min(regs, default=0)}..{max(regs, default=0)}, spill "
                 f"stores up to {max(spills, default=0)} bytes")
-    _build.load_library()
+    lib_c = _build.load_library()
+    _sm90_report(_build, lib, lib_c, failures)
+
+
+SM90_KERNEL = "flash_sm90_kernel"
+
+
+def _sm90_report(_build, lib, lib_c, failures):
+    """The tensor-core flash kernel, per head-dim width: registers and
+    spills from ptxas's log, its dynamic shared memory, and the count of
+    HGMMA (wgmma) instructions in its SASS (``cuobjdump -sass`` of the
+    built library).  A width with no HGMMA fails the build phase."""
+    text = (_build.BUILD_DIR / "flash_attention_sm90.cu.ptxas.log"
+            ).read_text()
+    ptxas = {}
+    for block in text.split("Compiling entry function '")[1:]:
+        name = block.split("'", 1)[0]
+        if SM90_KERNEL not in name:
+            continue
+
+        def num(pattern):
+            m = re.search(pattern, block)
+            return int(m.group(1)) if m else 0
+        ptxas[_width(name)] = (num(r"Used (\d+) registers"),
+                               num(r"(\d+) bytes spill stores"),
+                               num(r"(\d+) bytes spill loads"))
+    cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)],
+                          capture_output=True, text=True, check=True,
+                          timeout=600).stdout
+    hgmma, name = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1) if SM90_KERNEL in m.group(1) else None
+            if name:
+                hgmma.setdefault(_width(name), 0)
+        elif name and "HGMMA" in line:
+            hgmma[_width(name)] += 1
+    from repro_torch.kernels.flash_attention.ops import SM90_WIDTHS
+    for w in SM90_WIDTHS:
+        regs, st, ld = ptxas.get(w, (0, 0, 0))
+        smem = lib_c.sage_flash_attention_sm90_smem(w)
+        n = hgmma.get(w, 0)
+        log(f"[build]   {SM90_KERNEL}<{w}>: registers {regs}, spill stores "
+            f"{st} B, spill loads {ld} B, dynamic shared memory {smem} B, "
+            f"HGMMA instructions {n}")
+        if n == 0:
+            failures.append(f"build: {SM90_KERNEL}<{w}> has no HGMMA "
+                            f"instruction in its SASS")
+
+
+def _width(mangled):
+    """The head-dim width of a mangled ``flash_sm90_kernel<W>``."""
+    m = re.search(SM90_KERNEL + r"ILi(\d+)E", mangled)
+    return int(m.group(1)) if m else -1
 
 
 def _check(failures, kernel, case, dtype, got, want, extra, tol_key=None):
@@ -163,14 +233,15 @@ def _check(failures, kernel, case, dtype, got, want, extra, tol_key=None):
     return err
 
 
-def _kernel_row(name, shape, err, ms, plain, bound, bound_by, library_ms):
+def _kernel_row(name, shape, err, ms, plain, bound, bound_by, library_ms,
+                source=None):
     file = {"ddim_step": "ddim_step/ddim_step.py:39",
             "dpmpp_step": "dpmpp_step/dpmpp_step.py:53",
             "group_mean": "group_mean/group_mean.py:21",
             "flash_attention": "flash_attention/flash_attention.py:53",
             "ssd_scan": "ssd_scan/ssd_scan.py:31"}[name]
     return dict(name=name, route="cuda",
-                source=f"src/repro_torch/csrc/{name}.cu",
+                source=f"src/repro_torch/csrc/{source or name}.cu",
                 replaces=f"src/repro/kernels/{file}", shape=shape,
                 max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound,
                 bound_by=bound_by, library_ms=library_ms)
@@ -196,15 +267,12 @@ def phase_kernels(failures):
     """Each kernel against its plain version at the main path's shapes.
     Returns the headline row per kernel for the result JSON."""
     import torch
-    import torch.nn.functional as F
     from repro_torch.core import samplers
     from repro_torch.core.schedule import make_schedule
     from repro_torch.kernels.ddim_step.ops import fused_cfg_ddim_step
     from repro_torch.kernels.ddim_step.ref import fused_cfg_ddim_step_ref
     from repro_torch.kernels.dpmpp_step.ops import fused_cfg_dpmpp_step
     from repro_torch.kernels.dpmpp_step.ref import fused_cfg_dpmpp_step_ref
-    from repro_torch.kernels.flash_attention.ops import flash_attention
-    from repro_torch.kernels.flash_attention.ref import attention_ref
     from repro_torch.kernels.group_mean.ops import masked_group_mean
     from repro_torch.kernels.group_mean.ref import masked_group_mean_ref
 
@@ -303,27 +371,77 @@ def phase_kernels(failures):
                     "group_mean", f"{case} f32", err, ms, plain, bound,
                     "bytes", None)
 
-    # flash_attention: the DiT branch phase runs the CFG pair of 8 member
-    # rows (batch 16) through self-attention (1024 tokens, 16 heads of 72)
-    # and cross-attention (77 cond tokens); the text tower runs 8 prompts
-    # causally (77 tokens, 4 heads of 192); plus a GQA + sliding-window case
-    cases = [
-        ("dit_self 16x1024x1024 h16 d72", 16, 1024, 1024, 16, 16, 72,
-         False, 0),
-        ("dit_cross 16x1024x77 h16 d72", 16, 1024, 77, 16, 16, 72, False, 0),
-        # the DPM path's branch phase with the shared-uncond CFG: 2 group
-        # rows + 8 member rows
-        ("dit_self 10x1024x1024 h16 d72", 10, 1024, 1024, 16, 16, 72, False,
-         0),
-        ("dit_cross 10x1024x77 h16 d72", 10, 1024, 77, 16, 16, 72, False, 0),
-        # the shared phase: the CFG pair of 2 group trunks
-        ("dit_self 4x1024x1024 h16 d72", 4, 1024, 1024, 16, 16, 72, False, 0),
-        ("dit_cross 4x1024x77 h16 d72", 4, 1024, 77, 16, 16, 72, False, 0),
-        ("text_causal 8x77x77 h4 d192", 8, 77, 77, 4, 4, 192, True, 0),
-        ("gqa_window 2x1024 h16/4 d72 w256", 2, 1024, 1024, 16, 4, 72,
-         True, 256),
-    ]
-    for (case, B, Sq, Sk, H, Hkv, D, causal, window) in cases:
+    _flash_cases(failures, rows, dev, gen, FLASH_CASES)
+    _flash_scale_signs(failures, dev, gen)
+    _ssd_cases(failures, rows, dev, gen)
+    torch.cuda.empty_cache()
+    return rows
+
+
+# flash_attention: (case, B, Sq, Sk, H, Hkv, D, causal, window, dtypes).
+# The DiT branch phase runs the CFG pair of 8 member rows (batch 16) through
+# self-attention (1024 tokens, 16 heads of 72) and cross-attention (77 cond
+# tokens); the text tower runs 8 prompts causally (77 tokens, 4 heads of
+# 192, f32 on the path).  bf16 takes the sm90 tensor-core kernel, f32 the
+# CUDA-core one.  The bf16-only cases are the shapes the sm90 kernel's
+# padding and masking can get wrong: each padded width, D not a width, Sq
+# and Sk ragged against the 64/128-row tiles, a single key.
+BOTH, BF16 = ("float32", "bfloat16"), ("bfloat16",)
+FLASH_CASES = [
+    ("dit_self 16x1024x1024 h16 d72", 16, 1024, 1024, 16, 16, 72, False, 0,
+     BOTH),
+    ("dit_cross 16x1024x77 h16 d72", 16, 1024, 77, 16, 16, 72, False, 0,
+     BOTH),
+    # the DPM path's branch phase with the shared-uncond CFG: 2 group rows
+    # + 8 member rows
+    ("dit_self 10x1024x1024 h16 d72", 10, 1024, 1024, 16, 16, 72, False, 0,
+     BOTH),
+    ("dit_cross 10x1024x77 h16 d72", 10, 1024, 77, 16, 16, 72, False, 0,
+     BOTH),
+    # the shared phase: the CFG pair of 2 group trunks
+    ("dit_self 4x1024x1024 h16 d72", 4, 1024, 1024, 16, 16, 72, False, 0,
+     BOTH),
+    ("dit_cross 4x1024x77 h16 d72", 4, 1024, 77, 16, 16, 72, False, 0, BOTH),
+    ("text_causal 8x77x77 h4 d192", 8, 77, 77, 4, 4, 192, True, 0, BOTH),
+    ("gqa_window 2x1024 h16/4 d72 w256", 2, 1024, 1024, 16, 4, 72, True,
+     256, BOTH),
+    # sage-dit smoke (16 tokens, 4 heads of 32, cond 48) and sage-dit-100m
+    # (256 tokens, 12 heads of 64, cond 64), CFG pair of 8
+    ("smoke_self 16x16x16 h4 d32", 16, 16, 16, 4, 4, 32, False, 0, BF16),
+    ("smoke_cross 16x16x48 h4 d32", 16, 16, 48, 4, 4, 32, False, 0, BF16),
+    ("100m_self 16x256x256 h12 d64", 16, 256, 256, 12, 12, 64, False, 0,
+     BF16),
+    ("100m_cross 16x256x64 h12 d64", 16, 256, 64, 12, 12, 64, False, 0,
+     BF16),
+    ("d128 4x1024x1024 h8 d128", 4, 1024, 1024, 8, 8, 128, False, 0, BF16),
+    ("d192 causal 2x515x515 h4 d192", 2, 515, 515, 4, 4, 192, True, 0,
+     BF16),
+    ("d256 2x512x512 h4/2 d256", 2, 512, 512, 4, 2, 256, False, 0, BF16),
+    ("d256 causal 2x130x130 h4 d256", 2, 130, 130, 4, 4, 256, True, 0,
+     BF16),
+    ("ragged 3x130x200 h4/2 d72", 3, 130, 200, 4, 2, 72, False, 0, BF16),
+    ("ragged causal 2x200x200 h6 d40", 2, 200, 200, 6, 6, 40, True, 0,
+     BF16),
+    ("sk1 4x100x1 h4 d72", 4, 100, 1, 4, 4, 72, False, 0, BF16),
+    ("sk1 2x70x1 h2 d80", 2, 70, 1, 2, 2, 80, False, 0, BF16),
+    ("d8 window 2x300x300 h2 d8 w40", 2, 300, 300, 2, 2, 8, True, 40, BF16),
+]
+
+
+def _flash_cases(failures, rows, dev, gen, cases):
+    """Each case against ``attention_ref``, with the kernel's, the plain
+    version's and SDPA's times, the bound and the achieved TFLOP/s on the
+    function's own operations (4 B H pairs D at the true D).  A bf16 case
+    also times the CUDA-core kernel at the same shape, its C launcher
+    called directly (here only: the port routes bf16 to sm90)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention.ops import (DTYPES,
+                                                         flash_attention)
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    lib = _build.load_library()
+    for (case, B, Sq, Sk, H, Hkv, D, causal, window, dtypes) in cases:
         scale = 1.0 / math.sqrt(D)
         qi = torch.arange(Sq, device=dev)[:, None]
         ki = torch.arange(Sk, device=dev)[None, :]
@@ -333,8 +451,8 @@ def phase_kernels(failures):
         if window:
             visible &= ki > qi - window
         pairs = int(visible.sum())
-        for dtype in (torch.float32, torch.bfloat16):
-            dn = str(dtype).split(".")[1]
+        for dn in dtypes:
+            dtype = getattr(torch, dn)
             q = torch.randn((B, Sq, H, D), device=dev, generator=gen,
                             dtype=dtype)
             k, v = (torch.randn((B, Sk, Hkv, D), device=dev, generator=gen,
@@ -358,18 +476,48 @@ def phase_kernels(failures):
             t_ops = flops / PEAK_FLOPS[dn]
             t_bytes = nbytes / HBM_BYTES_PER_S
             bound = max(t_ops, t_bytes) * 1e3
+            extra = ""
+            if dtype == torch.bfloat16:
+                out = torch.empty_like(q)
+
+                def cuda_core():
+                    _build.check(lib.sage_flash_attention(
+                        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        out.data_ptr(), B, Sq, Sk, H, Hkv, D, scale,
+                        int(causal), window, DTYPES[dtype],
+                        torch.cuda.current_stream().cuda_stream),
+                        "flash_attention (cuda_core, bf16)")
+                extra = f"cuda_core_ms={time_ms(cuda_core, 10):.6g} "
+                del out
             err = _check(failures, "flash_attention", case, dn, got, want,
-                         f"ms={ms:.6g} plain_ms={plain:.6g} "
-                         f"library_ms={lib_ms:.6g} bound_ms={bound:.6g}")
+                         f"ms={ms:.6g} {extra}plain_ms={plain:.6g} "
+                         f"library_ms={lib_ms:.6g} bound_ms={bound:.6g} "
+                         f"tflops={flops / ms / 1e9:.4g}")
             if case.startswith("dit_self 16x") and dtype == torch.bfloat16:
                 rows["flash_attention"] = _kernel_row(
                     "flash_attention", f"{case} bf16", err, ms, plain, bound,
-                    "operations" if t_ops >= t_bytes else "bytes", lib_ms)
+                    "operations" if t_ops >= t_bytes else "bytes", lib_ms,
+                    source="flash_attention_sm90")
             del q, k, v, got, want
     torch.cuda.empty_cache()
-    _ssd_cases(failures, rows, dev, gen)
-    torch.cuda.empty_cache()
-    return rows
+
+
+def _flash_scale_signs(failures, dev, gen):
+    """The sm90 kernel folds a positive scale into its exponents; the
+    wrapper maps a negative scale (-q) and a zero one (q * 0) onto it."""
+    import torch
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    q = torch.randn((2, 130, 4, 72), device=dev, generator=gen,
+                    dtype=torch.bfloat16)
+    k, v = (torch.randn((2, 200, 2, 72), device=dev, generator=gen,
+                        dtype=torch.bfloat16) for _ in range(2))
+    for scale, causal in ((-0.3, False), (-0.3, True), (0.0, True)):
+        kw = dict(causal=causal, scale=scale)
+        _check(failures, "flash_attention",
+               f"scale={scale:g} causal={int(causal)} 2x130x200 h4/2",
+               "bfloat16", flash_attention(q, k, v, **kw),
+               attention_ref(q, k, v, **kw), "")
 
 
 # ssd_scan on the mamba2 path (48 heads of 64, d_state 128, chunk 128):
@@ -502,6 +650,15 @@ def _counters():
             "ssd_scan": ssd_chunked_kernel}
 
 
+def _reset_counts(counters):
+    """Every launch count to 0, flash's per-route counts too."""
+    for fn in counters.values():
+        fn.launches = 0
+    routes = counters["flash_attention"].launches_by_route
+    for r in routes:
+        routes[r] = 0
+
+
 def _build_modules(cfg, tc, device, vae_dtype, seed=0):
     """DiT, text tower and VAE decoder with weights drawn from ``seed``."""
     import torch
@@ -526,17 +683,17 @@ def _engine(modules, path, device, seed=0):
                              step_impl="fused", seed=seed, device=device)
 
 
-def _serve(engine, prompts, path, failures):
+def _serve(engine, prompts, path, failures, routes):
     """One counted ``step()`` of ``path``: every launch count set to 0
-    just before, read just after.  Returns the counts."""
+    just before, read just after; flash's per-route counts must equal
+    ``routes``.  Returns the counts."""
     import numpy as np
     import torch
 
     dev = torch.device("cuda:0")
     engine.submit(prompts)
     counters = _counters()
-    for fn in counters.values():
-        fn.launches = 0
+    _reset_counts(counters)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
@@ -544,6 +701,7 @@ def _serve(engine, prompts, path, failures):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in counters.items()}
+    by_route = dict(counters["flash_attention"].launches_by_route)
     peak = torch.cuda.max_memory_allocated(dev)
 
     st = engine.stats
@@ -557,7 +715,11 @@ def _serve(engine, prompts, path, failures):
         f"segment_launches={st['launches']} pack_rows={st['pack_rows']} "
         f"pack_pad_rows={st['pack_pad_rows']}")
     log(f"[e2e:{path}] wall_s={wall:.3f} peak_mem_gib={peak / 2 ** 30:.3f} "
-        f"kernel_launches={launches}")
+        f"kernel_launches={launches} flash_by_route={by_route} (expected "
+        f"{routes})")
+    if by_route != routes:
+        failures.append(f"e2e {path}: flash launches by route {by_route}, "
+                        f"not {routes}")
     if len(done) != len(prompts):
         failures.append(f"e2e {path}: {len(done)} completions for "
                         f"{len(prompts)} prompts")
@@ -603,9 +765,60 @@ def phase_end_to_end(failures):
     launches = {}
     for path in DIT_PATHS:
         engine = _engine(modules, path, dev)
-        launches[path] = _serve(engine, prompts, path, failures)
+        # bf16 DiT: self + cross a layer a step, on sm90; the f32 text
+        # tower: one causal launch a layer, on the CUDA cores
+        routes = {"sm90": 2 * cfg.n_layers * PATHS[path]["total_steps"],
+                  "cuda_core": tc.n_layers}
+        launches[path] = _serve(engine, prompts, path, failures, routes)
         _profile_step(engine, prompts, path)
+    _bf16_forward_check(modules[0], failures)
     return launches
+
+
+def _bf16_forward_check(dit, failures):
+    """One full-width DiT forward on the CFG pair (batch 16) three ways: the
+    bf16 model through the kernel (sm90 rounds P to bf16 before P V), the
+    same bf16 model with plain attention, and plain attention in f32.  The
+    kernel's mean error against f32 must be within 1.25x the plain bf16
+    route's own, the bar tests/test_torch_models.py holds bf16 to."""
+    import torch
+    from repro_torch.config import replace
+    cfg = dit.cfg
+    dev = dit.pos.device
+    gen = torch.Generator(device=dev).manual_seed(1)
+    z = torch.randn((16, cfg.latent_size, cfg.latent_size,
+                     cfg.latent_channels), device=dev, generator=gen)
+    t = torch.randint(0, 1000, (16,), device=dev, generator=gen)
+    cond = torch.randn((16, cfg.cond_len, cfg.cond_dim), device=dev,
+                       generator=gen)
+    eps = {}
+    for impl, dtype in (("kernel", "bfloat16"), ("naive", "bfloat16"),
+                        ("naive", "float32")):
+        dit.cfg = replace(cfg, attn_impl=impl, dtype=dtype)
+        eps[impl, dtype] = dit(z, t, cond)
+    dit.cfg = cfg
+    want = eps["naive", "float32"]
+    err = {}
+    for key in (("kernel", "bfloat16"), ("naive", "bfloat16")):
+        diff = (eps[key] - want).abs()
+        err[key] = (diff.mean().item(), diff.max().item())
+    finite = all(bool(torch.isfinite(e).all()) for e in eps.values())
+    ok = finite and (err["kernel", "bfloat16"][0]
+                     <= 1.25 * err["naive", "bfloat16"][0])
+    log(f"[check] sage-dit bf16 forward, CFG pair of 8, against f32: "
+        f"kernel mean_abs_err={err['kernel', 'bfloat16'][0]:.4e} "
+        f"max_abs_err={err['kernel', 'bfloat16'][1]:.4e}; naive bf16 "
+        f"mean_abs_err={err['naive', 'bfloat16'][0]:.4e} max_abs_err="
+        f"{err['naive', 'bfloat16'][1]:.4e} (|eps| mean "
+        f"{want.abs().mean().item():.4f}); tol 1.25x naive "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"sage-dit bf16 forward: kernel mean error "
+                        f"{err['kernel', 'bfloat16'][0]:.4e} > 1.25 x naive "
+                        f"{err['naive', 'bfloat16'][0]:.4e} (finite="
+                        f"{finite})")
+    del eps, want
+    torch.cuda.empty_cache()
 
 
 def _profile_step(engine, prompts, path):
@@ -712,8 +925,7 @@ def phase_mamba2(failures):
         f"{held / 2 ** 30:.3f} GiB")
     per_prefill = cfg.n_layers            # one ssd_scan launch per layer
     counters = _counters()
-    for fn in counters.values():
-        fn.launches = 0
+    _reset_counts(counters)
     ssd = counters["ssd_scan"]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -964,7 +1176,7 @@ def main() -> int:
 
     failures = []
     t0 = time.perf_counter()
-    phase_build()
+    phase_build(failures)
     t1 = time.perf_counter()
     rows = phase_kernels(failures)
     t2 = time.perf_counter()

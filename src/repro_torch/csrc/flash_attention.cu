@@ -1,4 +1,8 @@
-// Blocked online-softmax attention (FlashAttention-style) for Hopper (sm_90a).
+// Blocked online-softmax attention (FlashAttention-style) on CUDA cores: the
+// f32 route.  kernels/flash_attention/ops.py sends every f32 CUDA call here
+// (the text tower's causal attention on the serving path) and every bf16 call
+// to the tensor-core kernel, flash_attention_sm90.cu; this kernel still takes
+// bf16, which chip_smoke.py times beside the sm90 kernel.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention/flash_attention.py:
 // flash_attention_bhsd (body _kernel, window start _k_start).  Same function:
@@ -6,13 +10,14 @@
 // causal, causal sliding window (keys in (row - window, row]), GQA with query
 // head h reading K/V head h / (H / Hkv), head_dim D <= 256 at run time.
 //
-// What bounds it: operations.  At the serving shapes (1024 x 1024 tokens,
-// D = 72) it does 4 * Sq * Sk * D flops per head against 2 * (Sq + 2 Sk) * D
-// bytes, hundreds of flops per byte, so the floor is the tensor-core rate.
+// What bounds it: bytes, at the text tower's shape (77 x 77 tokens, 4 heads of
+// 192, causal): 4 * pairs * D flops per head against (2 Sq + 2 Sk) * D * 4
+// bytes is ~10 flops a byte, under f32's ridge of 20 (67 TFLOP/s outside the
+// tensor cores against 3.35 TB/s).
 //
-// What this first version does about it: it is written to be right, simple
-// and free of the TPU's layout, not yet to reach that floor.  One block of
-// 128 threads owns a 64-row query tile of one (batch, head); it walks the key
+// What this version does about it: it is written to be right, simple and
+// free of the TPU's layout, not yet to reach that floor.  One block of 128
+// threads owns a 64-row query tile of one (batch, head); it walks the key
 // axis in 64-key tiles staged in shared memory as f32 and never writes scores
 // to device memory.  Each thread computes a 4 x 8 patch of the score tile
 // with f32 FMAs, the softmax statistics of its 4 rows are combined across the
@@ -22,8 +27,7 @@
 // the lanes of a warp hit distinct banks.  There is no padding of D to 128
 // lanes and no sequential-grid scratch: the key loop runs inside the block,
 // and a causal or windowed query tile visits only the key tiles it can see.
-// The tensor-core version (mma.sync / wgmma with TMA-fed tiles, which needs
-// D padded to a multiple of 16) is later work.
+// An f32-accurate tensor-core version (3xTF32) is later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

@@ -23,7 +23,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("ddim_step.cu", "dpmpp_step.cu", "flash_attention.cu",
-           "group_mean.cu", "ssd_scan.cu")
+           "flash_attention_sm90.cu", "group_mean.cu", "ssd_scan.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
@@ -44,6 +44,12 @@ SIGNATURES = {
     # stream
     "sage_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
                              _I, _I, _I, _P),
+    # the same arguments with the padded head-dim width after D, bf16 only
+    "sage_flash_attention_sm90": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                  _I, _F, _I, _I, _I, _P),
+    # padded width -> the sm90 kernel's dynamic shared memory in bytes (not a
+    # launcher)
+    "sage_flash_attention_sm90_smem": (_I,),
     # x, mask, out, K, N, F, dtype, stream
     "sage_group_mean": (_P, _P, _P, _I, _I, _LL, _I, _P),
     # x, dA, B, C, y, states, batch, chunks, heads, Q, P, N, dtype, stream

@@ -1,9 +1,12 @@
-"""Public wrapper of the flash-attention kernel (``csrc/flash_attention.cu``).
+"""Public wrapper of the flash-attention kernels.
 
-A CUDA tensor launches the kernel or raises; a CPU tensor takes the plain
-version (``ref.py``).  The kernel reads the (B, S, H, D) layout in place
-with GQA by head index (query head h reads K/V head h // (H // Hkv)), so
-nothing is transposed, repeated or padded on the way in.
+A CUDA tensor launches a kernel or raises; a CPU tensor takes the plain
+version (``ref.py``).  The route follows the dtype: bf16 goes to the
+tensor-core kernel ``csrc/flash_attention_sm90.cu`` (wgmma, TMA-fed K/V
+ring), f32 to the CUDA-core kernel ``csrc/flash_attention.cu``.  Both
+read the (B, S, H, D) layout in place with GQA by head index (query head
+h reads K/V head h // (H // Hkv)), so nothing is transposed, repeated or
+padded on the way in.
 """
 from __future__ import annotations
 
@@ -16,6 +19,29 @@ from repro_torch.kernels.flash_attention.ref import attention_ref
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
+#: head-dim widths the sm90 kernel is built for; D is zero-padded in shared
+#: memory to the first that holds it, and the launcher is handed that width
+SM90_WIDTHS = (32, 64, 80, 128, 192, 256)
+ROUTES = ("sm90", "cuda_core")
+
+
+def route(dtype: torch.dtype, head_dim: int) -> tuple[str, int]:
+    """The kernel a CUDA tensor of ``dtype`` launches and the head-dim width
+    it computes at: ``("sm90", padded width)`` for bf16, ``("cuda_core",
+    head_dim)`` for f32.  Raises for what neither kernel takes."""
+    if head_dim > MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention supports head_dim <= "
+                         f"{MAX_HEAD_DIM}, got {head_dim}")
+    if dtype == torch.bfloat16:
+        if head_dim % 8:
+            raise ValueError(f"the bf16 kernel reads rows of 16-byte TMA "
+                             f"chunks: head_dim must be a multiple of 8, "
+                             f"got {head_dim}")
+        return "sm90", next(w for w in SM90_WIDTHS if w >= head_dim)
+    if dtype == torch.float32:
+        return "cuda_core", head_dim
+    raise TypeError(f"flash_attention kernel takes float32/bfloat16, "
+                    f"got {dtype}")
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
@@ -51,23 +77,35 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
         if x.device != q.device or x.dtype != q.dtype:
             raise ValueError(f"{name} is {x.dtype} on {x.device}, q is "
                              f"{q.dtype} on {q.device}")
-    if q.dtype not in DTYPES:
-        raise TypeError(f"flash_attention kernel takes float32/bfloat16, "
-                        f"got {q.dtype}")
+    kernel, width = route(q.dtype, D)
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention kernel needs contiguous "
                          "(B, S, H, D) tensors")
     out = torch.empty_like(q)
     if out.numel() == 0 or Sk == 0:
         return out.zero_()
+    if kernel == "sm90" and any(x.data_ptr() % 16 for x in (q, k, v)):
+        raise ValueError("the bf16 kernel's tensor maps need 16-byte "
+                         "aligned q, k, v")
+    if kernel == "sm90" and scale <= 0:
+        # the sm90 kernel folds a positive scale into each exponent's FMA;
+        # -q at -scale gives the same scores exactly, and q * 0 at scale 1
+        # the zero scale's (NaN where q is not finite, as in attention_ref)
+        q, scale = (q.neg(), -scale) if scale < 0 else (q * 0, 1.0)
     lib = _build.load_library()
-    rc = lib.sage_flash_attention(
+    if kernel == "sm90":
+        launcher, sizes = lib.sage_flash_attention_sm90, (D, width)
+    else:
+        launcher, sizes = lib.sage_flash_attention, (D,)
+    rc = launcher(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        B, Sq, Sk, H, Hkv, D, float(scale), int(causal), int(window),
+        B, Sq, Sk, H, Hkv, *sizes, float(scale), int(causal), int(window),
         DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(rc, "flash_attention")
+    _build.check(rc, f"flash_attention ({kernel})")
     flash_attention.launches += 1
+    flash_attention.launches_by_route[kernel] += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.launches_by_route = dict.fromkeys(ROUTES, 0)

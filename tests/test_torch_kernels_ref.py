@@ -110,6 +110,11 @@ FLASH_CASES = {
     "causal_77_hd192": (1, 77, 77, 2, 2, 192, True, 0),
     "gqa_causal": (2, 48, 48, 4, 2, 32, True, 0),
     "gqa_window": (1, 150, 150, 4, 1, 64, True, 24),
+    # edges of the bf16 sm90 kernel's padding and masking: a padded width
+    # met exactly with a single key, and the widest head ragged against
+    # its 64-row query tiles under the causal mask
+    "hd80_sk1": (2, 40, 1, 2, 2, 80, False, 0),
+    "causal_sq130_hd256": (1, 130, 130, 2, 2, 256, True, 0),
 }
 
 
