@@ -12,13 +12,16 @@ without the result line:
    (``flash_attention_sm90.cu``), per head-dim width, its registers,
    spills, dynamic shared memory and the count of HGMMA (wgmma)
    instructions in ``cuobjdump -sass`` of the library, which must not be 0;
+   for the 3xTF32 kernels (``flash_attention.cu``, ``ssd_scan.cu``), per
+   instantiation, registers, spills and the count of HMMA (mma.sync)
+   instructions, which must not be 0 either;
 2. kernel vs plain — every kernel of the serving paths against its plain
    PyTorch version (``ref.py``) on the card at the main paths' shapes, in
    f32 and bf16, each error beside its tolerance, with the kernel's, the
-   plain version's and (for attention) the library's time.  Flash in bf16
-   runs the sm90 kernel, also at the shapes its padding and masking can
-   get wrong, each beside the CUDA-core kernel's time at the same shape
-   and its achieved TFLOP/s;
+   plain version's and (for attention) the library's time, its bound and
+   its achieved TFLOP/s.  Flash in bf16 runs the sm90 kernel, in f32 the
+   3xTF32 one, each also at the shapes its padding and masking can get
+   wrong;
 3. end to end, DiT — for each diffusion serving path (``DIT_PATHS``: 30
    DDIM steps, and 30 DPM-Solver++(2M) steps with the shared-uncond CFG),
    one ``SageServingEngine.step()`` at the full ``sage-dit`` width (28
@@ -28,8 +31,8 @@ without the result line:
    routes, with every launch count set to 0 just before and read just
    after; every image must be finite, every kernel of the path launched
    and no kernel off it, and every bf16 flash launch (self + cross a
-   layer a step) on the sm90 route, the f32 text tower's on the CUDA
-   cores.  Each step then runs once more under ``torch.profiler`` for
+   layer a step) on the sm90 route, the f32 text tower's on the tf32x3
+   route.  Each step then runs once more under ``torch.profiler`` for
    device time by kernel and the busy share.  Then one DiT forward on the
    CFG pair (batch 16) through the kernel, through plain attention in
    bf16 and in f32: the kernel's mean error against f32 must stay within
@@ -69,18 +72,25 @@ ROOT = Path(__file__).resolve().parent
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 PEAK_FLOPS = {"float32": 67e12,    # f32 outside the tensor cores
-              "bfloat16": 989e12}  # dense bf16 tensor cores
+              "bfloat16": 989e12,  # dense bf16 tensor cores
+              "tf32": 494.7e12}    # dense TF32 tensor cores
+# passes of a TF32 product per f32 product in the 3xTF32 kernels
+# (hi*hi + hi*lo + lo*hi); an operand in bf16 needs no split, so a product
+# with one bf16 operand takes 2 and one with two bf16 operands 1
+TF32_PASSES = 3
 # tests/test_kernels.py: step kernels 1e-5 / 3e-2 (f32 / bf16); flash
 # attention 2e-4 / 4e-2.  The SSD scan: the kernel's tiles (y_diag and the
 # chunk states) are f32 on both sides, computed in f32 from the same inputs
 # in bf16 as in f32, so both are held at f32's 1e-4 (tests/test_kernel_ssd.
 # py); the whole wrapper's y is rounded once to x's dtype, which in bf16
 # may flip that rounding by one ulp: two bf16 ulps, 2^-6 of (1 + |y|).
-# Both flash paths accumulate in f32, so f32 differs
-# by summation order only.  bf16 is held at 1e-2, not the JAX tests' 4e-2:
-# a self-attention output over ~1024 keys is ~0.04 in size, so 4e-2 of
-# (1 + |o|) would pass a kernel with a wrong scale or a dropped key tile;
-# 1e-2 is a quarter of that size.  The sm90 kernel rounds P to bf16 before
+# Both flash paths accumulate in f32.  The f32 route's and the SSD tiles'
+# 3xTF32 products miss an f32 product by ~2^-22 of it (the dropped lo*lo
+# term), plain TF32 by ~2^-11, which these tolerances fail
+# (tests/test_torch_tf32_split.py emulates both).  bf16 flash is held at
+# 1e-2, not the JAX tests' 4e-2: a self-attention output over ~1024 keys
+# is ~0.04 in size, so 4e-2 of (1 + |o|) would pass a kernel with a wrong
+# scale or a dropped key tile; 1e-2 is a quarter of that size.  The sm90 kernel rounds P to bf16 before
 # P V (2^-9 relative, averaged over the keys) and the output once to 8 bits
 # of mantissa (one ulp of |o| < 2 is 7.8e-3, inside 1e-2 * (1 + |o|)).
 # group mean: f32 sums of 4 products in another order than torch's
@@ -160,44 +170,94 @@ def phase_build(failures):
                 f"{min(regs, default=0)}..{max(regs, default=0)}, spill "
                 f"stores up to {max(spills, default=0)} bytes")
     lib_c = _build.load_library()
-    _sm90_report(_build, lib, lib_c, failures)
+    cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)],
+                          capture_output=True, text=True, check=True,
+                          timeout=600).stdout
+    _sm90_report(_build, sass, lib_c, failures)
+    for source, kernel in TF32X3_KERNELS:
+        _tf32x3_report(_build, sass, source, kernel, failures)
 
 
 SM90_KERNEL = "flash_sm90_kernel"
+# the 3xTF32 kernels: (source, kernel name)
+TF32X3_KERNELS = (("flash_attention.cu", "flash_tf32x3_kernel"),
+                  ("ssd_scan.cu", "ssd_tc_kernel"))
 
 
-def _sm90_report(_build, lib, lib_c, failures):
-    """The tensor-core flash kernel, per head-dim width: registers and
-    spills from ptxas's log, its dynamic shared memory, and the count of
-    HGMMA (wgmma) instructions in its SASS (``cuobjdump -sass`` of the
-    built library).  A width with no HGMMA fails the build phase."""
-    text = (_build.BUILD_DIR / "flash_attention_sm90.cu.ptxas.log"
-            ).read_text()
-    ptxas = {}
+def _ptxas_by_kernel(_build, source, kernel):
+    """{mangled name: (registers, spill stores, spill loads)} of each
+    instantiation of ``kernel`` in ``source``'s ptxas log."""
+    text = (_build.BUILD_DIR / (source + ".ptxas.log")).read_text()
+    out = {}
     for block in text.split("Compiling entry function '")[1:]:
         name = block.split("'", 1)[0]
-        if SM90_KERNEL not in name:
+        if kernel not in name:
             continue
 
         def num(pattern):
             m = re.search(pattern, block)
             return int(m.group(1)) if m else 0
-        ptxas[_width(name)] = (num(r"Used (\d+) registers"),
-                               num(r"(\d+) bytes spill stores"),
-                               num(r"(\d+) bytes spill loads"))
-    cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
-    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)],
-                          capture_output=True, text=True, check=True,
-                          timeout=600).stdout
-    hgmma, name = {}, None
+        out[name] = (num(r"Used (\d+) registers"),
+                     num(r"(\d+) bytes spill stores"),
+                     num(r"(\d+) bytes spill loads"))
+    return out
+
+
+def _sass_count(sass, kernel, opcode):
+    """{mangled name: count of ``opcode`` instructions} of each
+    instantiation of ``kernel`` in the library's SASS."""
+    counts, name = {}, None
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            name = m.group(1) if SM90_KERNEL in m.group(1) else None
+            name = m.group(1) if kernel in m.group(1) else None
             if name:
-                hgmma.setdefault(_width(name), 0)
-        elif name and "HGMMA" in line:
-            hgmma[_width(name)] += 1
+                counts.setdefault(name, 0)
+        elif name and opcode in line:
+            counts[name] += 1
+    return counts
+
+
+def _tf32x3_report(_build, sass, source, kernel, failures):
+    """A 3xTF32 kernel, per instantiation: registers and spills from
+    ptxas's log and the count of HMMA (mma.sync) instructions in its SASS.
+    An instantiation with no HMMA fails the build phase."""
+    ptxas = _ptxas_by_kernel(_build, source, kernel)
+    hmma = _sass_count(sass, kernel, "HMMA")
+    for name in sorted(set(ptxas) | set(hmma)):
+        regs, st, ld = ptxas.get(name, (0, 0, 0))
+        n = hmma.get(name, 0)
+        short = _instantiation(name, kernel)
+        log(f"[build]   {source} {short}: registers {regs}, spill stores "
+            f"{st} B, spill loads {ld} B, HMMA instructions {n}")
+        if n == 0:
+            failures.append(f"build: {source} {short} has no HMMA "
+                            f"instruction in its SASS")
+
+
+def _instantiation(mangled, kernel):
+    """``kernel<args>`` from a mangled instantiation name (f32 / bf16 for
+    a type, numbers for the rest)."""
+    m = re.search(kernel + r"I(.+?)EE", mangled)
+    if not m:
+        return kernel
+    args = m.group(1).replace("13__nv_bfloat16", "bf16 ")
+    if args.startswith("f"):
+        args = "f32 " + args[1:]
+    args = args.replace("Li", " ").replace("E", " ")
+    return f"{kernel}<{','.join(args.split())}>"
+
+
+def _sm90_report(_build, sass, lib_c, failures):
+    """The tensor-core flash kernel, per head-dim width: registers and
+    spills from ptxas's log, its dynamic shared memory, and the count of
+    HGMMA (wgmma) instructions in its SASS (``cuobjdump -sass`` of the
+    built library).  A width with no HGMMA fails the build phase."""
+    ptxas = {_width(k): v for k, v in _ptxas_by_kernel(
+        _build, "flash_attention_sm90.cu", SM90_KERNEL).items()}
+    hgmma = {_width(k): v for k, v in _sass_count(
+        sass, SM90_KERNEL, "HGMMA").items()}
     from repro_torch.kernels.flash_attention.ops import SM90_WIDTHS
     for w in SM90_WIDTHS:
         regs, st, ld = ptxas.get(w, (0, 0, 0))
@@ -383,10 +443,12 @@ def phase_kernels(failures):
 # self-attention (1024 tokens, 16 heads of 72) and cross-attention (77 cond
 # tokens); the text tower runs 8 prompts causally (77 tokens, 4 heads of
 # 192, f32 on the path).  bf16 takes the sm90 tensor-core kernel, f32 the
-# CUDA-core one.  The bf16-only cases are the shapes the sm90 kernel's
-# padding and masking can get wrong: each padded width, D not a width, Sq
-# and Sk ragged against the 64/128-row tiles, a single key.
-BOTH, BF16 = ("float32", "bfloat16"), ("bfloat16",)
+# 3xTF32 one.  The other cases are the shapes a kernel's padding and
+# masking can get wrong: each padded width of the sm90 kernel, D not a
+# width, Sq and Sk ragged against the tiles (16-row and 32-key for the
+# f32 kernel, 64/128 for sm90), a single key; in f32 also D off the 16-byte
+# loads (4-byte copies) and off the product's K step of 8.
+BOTH, BF16, F32 = ("float32", "bfloat16"), ("bfloat16",), ("float32",)
 FLASH_CASES = [
     ("dit_self 16x1024x1024 h16 d72", 16, 1024, 1024, 16, 16, 72, False, 0,
      BOTH),
@@ -418,29 +480,31 @@ FLASH_CASES = [
      BF16),
     ("d256 2x512x512 h4/2 d256", 2, 512, 512, 4, 2, 256, False, 0, BF16),
     ("d256 causal 2x130x130 h4 d256", 2, 130, 130, 4, 4, 256, True, 0,
-     BF16),
-    ("ragged 3x130x200 h4/2 d72", 3, 130, 200, 4, 2, 72, False, 0, BF16),
+     BOTH),
+    ("ragged 3x130x200 h4/2 d72", 3, 130, 200, 4, 2, 72, False, 0, BOTH),
     ("ragged causal 2x200x200 h6 d40", 2, 200, 200, 6, 6, 40, True, 0,
-     BF16),
-    ("sk1 4x100x1 h4 d72", 4, 100, 1, 4, 4, 72, False, 0, BF16),
+     BOTH),
+    ("sk1 4x100x1 h4 d72", 4, 100, 1, 4, 4, 72, False, 0, BOTH),
     ("sk1 2x70x1 h2 d80", 2, 70, 1, 2, 2, 80, False, 0, BF16),
-    ("d8 window 2x300x300 h2 d8 w40", 2, 300, 300, 2, 2, 8, True, 40, BF16),
+    ("d8 window 2x300x300 h2 d8 w40", 2, 300, 300, 2, 2, 8, True, 40, BOTH),
+    ("d30 ragged 2x70x90 h2 d30", 2, 70, 90, 2, 2, 30, False, 0, F32),
+    ("d100 window 2x300x300 h4/2 d100 w64", 2, 300, 300, 4, 2, 100, True,
+     64, F32),
+    ("d5 causal 3x33x33 h3/1 d5", 3, 33, 33, 3, 1, 5, True, 0, F32),
 ]
 
 
 def _flash_cases(failures, rows, dev, gen, cases):
     """Each case against ``attention_ref``, with the kernel's, the plain
     version's and SDPA's times, the bound and the achieved TFLOP/s on the
-    function's own operations (4 B H pairs D at the true D).  A bf16 case
-    also times the CUDA-core kernel at the same shape, its C launcher
-    called directly (here only: the port routes bf16 to sm90)."""
+    function's own operations (4 B H pairs D at the true D).  The bound
+    prices those operations on the units that run them: bf16 tensor cores
+    for the sm90 kernel, three TF32 passes for the f32 one (beside the
+    f32 CUDA-core figure of earlier runs)."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels import _build
-    from repro_torch.kernels.flash_attention.ops import (DTYPES,
-                                                         flash_attention)
+    from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.flash_attention.ref import attention_ref
-    lib = _build.load_library()
     for (case, B, Sq, Sk, H, Hkv, D, causal, window, dtypes) in cases:
         scale = 1.0 / math.sqrt(D)
         qi = torch.arange(Sq, device=dev)[:, None]
@@ -473,51 +537,55 @@ def _flash_cases(failures, rows, dev, gen, cases):
             lib_ms = time_ms(sdpa, 10)
             flops = 4.0 * B * H * pairs * D
             nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
-            t_ops = flops / PEAK_FLOPS[dn]
             t_bytes = nbytes / HBM_BYTES_PER_S
-            bound = max(t_ops, t_bytes) * 1e3
             extra = ""
             if dtype == torch.bfloat16:
-                out = torch.empty_like(q)
-
-                def cuda_core():
-                    _build.check(lib.sage_flash_attention(
-                        q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                        out.data_ptr(), B, Sq, Sk, H, Hkv, D, scale,
-                        int(causal), window, DTYPES[dtype],
-                        torch.cuda.current_stream().cuda_stream),
-                        "flash_attention (cuda_core, bf16)")
-                extra = f"cuda_core_ms={time_ms(cuda_core, 10):.6g} "
-                del out
+                t_ops = flops / PEAK_FLOPS["bfloat16"]
+            else:
+                t_ops = TF32_PASSES * flops / PEAK_FLOPS["tf32"]
+                cc = max(flops / PEAK_FLOPS["float32"], t_bytes) * 1e3
+                extra = f"bound_cuda_core_ms={cc:.6g} "
+            bound = max(t_ops, t_bytes) * 1e3
+            bound_by = "operations" if t_ops >= t_bytes else "bytes"
             err = _check(failures, "flash_attention", case, dn, got, want,
-                         f"ms={ms:.6g} {extra}plain_ms={plain:.6g} "
+                         f"ms={ms:.6g} plain_ms={plain:.6g} "
                          f"library_ms={lib_ms:.6g} bound_ms={bound:.6g} "
+                         f"({bound_by}) {extra}"
                          f"tflops={flops / ms / 1e9:.4g}")
             if case.startswith("dit_self 16x") and dtype == torch.bfloat16:
                 rows["flash_attention"] = _kernel_row(
                     "flash_attention", f"{case} bf16", err, ms, plain, bound,
-                    "operations" if t_ops >= t_bytes else "bytes", lib_ms,
-                    source="flash_attention_sm90")
+                    bound_by, lib_ms, source="flash_attention_sm90")
+            if case.startswith("text_causal") and dtype == torch.float32:
+                f32_row = _kernel_row(
+                    "flash_attention", f"{case} f32", err, ms, plain, bound,
+                    bound_by, lib_ms)
+                f32_row["flash_route"] = "tf32x3"
             del q, k, v, got, want
+    rows["flash_attention"]["flash_route"] = "sm90"
+    rows["flash_attention"]["f32_text_causal"] = f32_row
     torch.cuda.empty_cache()
 
 
 def _flash_scale_signs(failures, dev, gen):
-    """The sm90 kernel folds a positive scale into its exponents; the
-    wrapper maps a negative scale (-q) and a zero one (q * 0) onto it."""
+    """A negative and a zero scale.  The sm90 kernel folds a positive
+    scale into its exponents, and the wrapper maps a negative scale (-q)
+    and a zero one (q * 0) onto it; the f32 kernel scales its scores."""
     import torch
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.flash_attention.ref import attention_ref
-    q = torch.randn((2, 130, 4, 72), device=dev, generator=gen,
-                    dtype=torch.bfloat16)
-    k, v = (torch.randn((2, 200, 2, 72), device=dev, generator=gen,
-                        dtype=torch.bfloat16) for _ in range(2))
-    for scale, causal in ((-0.3, False), (-0.3, True), (0.0, True)):
-        kw = dict(causal=causal, scale=scale)
-        _check(failures, "flash_attention",
-               f"scale={scale:g} causal={int(causal)} 2x130x200 h4/2",
-               "bfloat16", flash_attention(q, k, v, **kw),
-               attention_ref(q, k, v, **kw), "")
+    for dn in BOTH:
+        dtype = getattr(torch, dn)
+        q = torch.randn((2, 130, 4, 72), device=dev, generator=gen,
+                        dtype=dtype)
+        k, v = (torch.randn((2, 200, 2, 72), device=dev, generator=gen,
+                            dtype=dtype) for _ in range(2))
+        for scale, causal in ((-0.3, False), (-0.3, True), (0.0, True)):
+            kw = dict(causal=causal, scale=scale)
+            _check(failures, "flash_attention",
+                   f"scale={scale:g} causal={int(causal)} 2x130x200 h4/2",
+                   dn, flash_attention(q, k, v, **kw),
+                   attention_ref(q, k, v, **kw), "")
 
 
 # ssd_scan on the mamba2 path (48 heads of 64, d_state 128, chunk 128):
@@ -569,14 +637,23 @@ def _ssd_cases(failures, rows, dev, gen):
         dAp = F.pad(dA, (0, 0, 0, pad))
         Bp, Cp = (F.pad(t, (0, 0, 0, pad)) for t in (B, C))
         G = b * (l + pad) // Q * 48
-        # the causal pairs j <= i only: Q(Q+1)/2 of them, each an N-long
-        # dot for S and a P-long update of y, plus the chunk state's 2QPN
-        flops = G * (Q * (Q + 1) * (128 + 64) + 2 * Q * 64 * 128)
+        # the causal pairs j <= i only: Q(Q+1)/2 of them, each an N-long dot
+        # for C Bᵀ, once per (b, c) since B and C are shared by the heads,
+        # and per head a P-long update of y, plus the chunk state's 2QPN
+        cb_ops = b * (l + pad) // Q * Q * (Q + 1) * 128
+        head_ops = G * (Q * (Q + 1) * 64 + 2 * Q * 64 * 128)
+        # on the tensor cores: 3 TF32 passes each for f32 inputs; for bf16
+        # ones 1 for C Bᵀ (both operands bf16) and 2 for the others
+        passes = (TF32_PASSES, TF32_PASSES) if dn == "float32" else (1, 2)
+        t_ops = ((passes[0] * cb_ops + passes[1] * head_ops)
+                 / PEAK_FLOPS["tf32"])
         nbytes = ((xp.numel() + Bp.numel() + Cp.numel()) * xp.element_size()
                   + 4 * dAp.numel() + 4 * (xp.numel() + G * 64 * 128))
-        t_ops = flops / PEAK_FLOPS["float32"]
         t_bytes = nbytes / HBM_BYTES_PER_S
         bound = max(t_ops, t_bytes) * 1e3
+        # PR 13's figure: per-head C Bᵀ, f32 on CUDA cores
+        cc = max(G * (Q * (Q + 1) * (128 + 64) + 2 * Q * 64 * 128)
+                 / PEAK_FLOPS["float32"], t_bytes) * 1e3
         if not init:
             got = ssd_intra_chunk(xp, dAp, Bp, Cp, Q)
             want = ssd_tiles_ref(xp, dAp, Bp, Cp, Q)
@@ -584,13 +661,21 @@ def _ssd_cases(failures, rows, dev, gen):
             plain = time_ms(lambda: ssd_tiles_ref(xp, dAp, Bp, Cp, Q), 3)
             tcase = f"tiles {case} G={G}"
             extra = (f"ms={ms:.6g} plain_ms={plain:.6g} "
-                     f"bound_ms={bound:.6g} library_ms=none")
+                     f"bound_ms={bound:.6g} "
+                     f"({'operations' if t_ops >= t_bytes else 'bytes'}; "
+                     f"ops {t_ops * 1e3:.6g}, bytes {t_bytes * 1e3:.6g}) "
+                     f"bound_cuda_core_ms={cc:.6g} library_ms=none")
             errs = [_check(failures, "ssd_scan", f"{tcase} {out}", dn, g, w,
                            extra) for out, g, w in zip(("y", "st"), got, want)]
             if case.startswith("shared") and dn == "float32":
                 rows["ssd_scan"] = _kernel_row(
                     "ssd_scan", f"{tcase} f32", max(errs), ms, plain, bound,
                     "operations" if t_ops >= t_bytes else "bytes", None)
+            if case.startswith("shared") and dn == "bfloat16":
+                rows["ssd_scan"]["bf16"] = dict(
+                    shape=f"{tcase} bf16", max_abs_err=max(errs), ms=ms,
+                    plain_ms=plain, bound_ms=bound,
+                    bound_by="operations" if t_ops >= t_bytes else "bytes")
             del got, want
         got = ssd_chunked_kernel(x, dA, B, C, Q, s0)
         want = ssd_chunked_ref(x, dA, B, C, Q, s0)
@@ -766,9 +851,9 @@ def phase_end_to_end(failures):
     for path in DIT_PATHS:
         engine = _engine(modules, path, dev)
         # bf16 DiT: self + cross a layer a step, on sm90; the f32 text
-        # tower: one causal launch a layer, on the CUDA cores
+        # tower: one causal launch a layer, on tf32x3
         routes = {"sm90": 2 * cfg.n_layers * PATHS[path]["total_steps"],
-                  "cuda_core": tc.n_layers}
+                  "tf32x3": tc.n_layers}
         launches[path] = _serve(engine, prompts, path, failures, routes)
         _profile_step(engine, prompts, path)
     _bf16_forward_check(modules[0], failures)

@@ -6,7 +6,7 @@
 // masked, causal and causal sliding window (keys in (row - window, row]), GQA with
 // query head h reading K/V head h / (H / Hkv), the (B, S, H, D) layout read in
 // place, every head_dim D <= 256 that is a multiple of 8 (TMA moves rows of 16
-// bytes).  The f32 route stays on the CUDA-core kernel, flash_attention.cu.
+// bytes).  The f32 route is flash_attention.cu (3xTF32 on mma.sync).
 //
 // What bounds it.  At the DiT's self-attention shapes (1024 x 1024 tokens, D = 72)
 // the operations: 4 * B * H * Sq * Sk * D against 989 TFLOP/s of bf16 tensor

@@ -24,6 +24,8 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("ddim_step.cu", "dpmpp_step.cu", "flash_attention.cu",
            "flash_attention_sm90.cu", "group_mean.cu", "ssd_scan.cu")
+#: headers the sources include (part of the build's hash)
+HEADERS = ("tf32x3.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
@@ -41,7 +43,7 @@ SIGNATURES = {
     "sage_dpmpp_step": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                         _P, _F, _F, _LL, _LL, _I, _I, _P),
     # q, k, v, out, B, Sq, Sk, H, Hkv, D, scale, causal, window, dtype,
-    # stream
+    # stream; f32 only (dtype 0; bf16 takes the sm90 launcher)
     "sage_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
                              _I, _I, _I, _P),
     # the same arguments with the padded head-dim width after D, bf16 only
@@ -74,7 +76,7 @@ def _nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]

@@ -1,12 +1,14 @@
 """Public wrapper of the flash-attention kernels.
 
 A CUDA tensor launches a kernel or raises; a CPU tensor takes the plain
-version (``ref.py``).  The route follows the dtype: bf16 goes to the
-tensor-core kernel ``csrc/flash_attention_sm90.cu`` (wgmma, TMA-fed K/V
-ring), f32 to the CUDA-core kernel ``csrc/flash_attention.cu``.  Both
-read the (B, S, H, D) layout in place with GQA by head index (query head
-h reads K/V head h // (H // Hkv)), so nothing is transposed, repeated or
-padded on the way in.
+version (``ref.py``).  The route follows the dtype; both kernels run their
+products on Hopper's tensor cores.  bf16 goes to
+``csrc/flash_attention_sm90.cu`` (``"sm90"``: wgmma, TMA-fed K/V ring),
+f32 to ``csrc/flash_attention.cu`` (``"tf32x3"``: mma.sync with each f32
+operand split into two TF32 values, three products summed in f32, which
+keeps f32's accuracy).  Both read the (B, S, H, D) layout in place with
+GQA by head index (query head h reads K/V head h // (H // Hkv)), so
+nothing is transposed, repeated or padded on the way in.
 """
 from __future__ import annotations
 
@@ -22,12 +24,12 @@ MAX_HEAD_DIM = 256
 #: head-dim widths the sm90 kernel is built for; D is zero-padded in shared
 #: memory to the first that holds it, and the launcher is handed that width
 SM90_WIDTHS = (32, 64, 80, 128, 192, 256)
-ROUTES = ("sm90", "cuda_core")
+ROUTES = ("sm90", "tf32x3")
 
 
 def route(dtype: torch.dtype, head_dim: int) -> tuple[str, int]:
     """The kernel a CUDA tensor of ``dtype`` launches and the head-dim width
-    it computes at: ``("sm90", padded width)`` for bf16, ``("cuda_core",
+    it computes at: ``("sm90", padded width)`` for bf16, ``("tf32x3",
     head_dim)`` for f32.  Raises for what neither kernel takes."""
     if head_dim > MAX_HEAD_DIM:
         raise ValueError(f"flash_attention supports head_dim <= "
@@ -39,7 +41,7 @@ def route(dtype: torch.dtype, head_dim: int) -> tuple[str, int]:
                              f"got {head_dim}")
         return "sm90", next(w for w in SM90_WIDTHS if w >= head_dim)
     if dtype == torch.float32:
-        return "cuda_core", head_dim
+        return "tf32x3", head_dim
     raise TypeError(f"flash_attention kernel takes float32/bfloat16, "
                     f"got {dtype}")
 

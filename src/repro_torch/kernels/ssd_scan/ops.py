@@ -1,12 +1,15 @@
 """Public wrapper of the SSD intra-chunk kernel (``csrc/ssd_scan.cu``):
 the full Mamba2 SSD scan assembled around it.
 
-The kernel computes each chunk's diagonal block of y and its state; the
-cheap, sequential inter-chunk recurrence and the off-diagonal term stay in
-plain torch, as the JAX wrapper keeps them in jnp.  Unlike the JAX wrapper
-this one keeps the whole contract of ``models.ssm.ssd_chunked``, which the
-model calls through it: a ragged tail is padded (zero inputs, dA = 0) and
-an initial state enters the recurrence.
+The kernel computes each chunk's diagonal block of y and its state on
+the tensor cores, f32-accurate (3xTF32 on f32 inputs; one and two passes
+on bf16 ones), forming C·Bᵀ once per (batch, chunk) for a block of heads,
+since B and C are shared by the heads; the cheap, sequential inter-chunk
+recurrence and the off-diagonal term stay in plain torch, as the JAX
+wrapper keeps them in jnp.  Unlike the JAX wrapper this one keeps the
+whole contract of ``models.ssm.ssd_chunked``, which the model calls
+through it: a ragged tail is padded (zero inputs, dA = 0) and an initial
+state enters the recurrence.
 
 A CUDA tensor launches the kernel or raises; a CPU tensor runs the plain
 tiles (``ssd_tiles_ref``) in the kernel's place, with the rest of the

@@ -25,9 +25,8 @@ def test_bf16_routes_to_sm90_at_the_padded_width(head_dim, width):
 
 
 @pytest.mark.parametrize("head_dim", [72, 192, 20, 256])
-def test_f32_routes_to_the_cuda_core_kernel(head_dim):
-    assert flash_ops.route(torch.float32, head_dim) == ("cuda_core",
-                                                        head_dim)
+def test_f32_routes_to_the_tf32x3_kernel(head_dim):
+    assert flash_ops.route(torch.float32, head_dim) == ("tf32x3", head_dim)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -47,12 +46,12 @@ def test_route_rejects_other_dtypes():
 
 
 def test_build_lists_the_sm90_source_and_launcher():
-    """The sm90 launcher takes the CUDA-core one's arguments with the padded
+    """The sm90 launcher takes the f32 one's arguments with the padded
     width (an int) after D, the tenth argument."""
     assert "flash_attention_sm90.cu" in _build.SOURCES
-    cuda_core = _build.SIGNATURES["sage_flash_attention"]
+    tf32x3 = _build.SIGNATURES["sage_flash_attention"]
     assert (_build.SIGNATURES["sage_flash_attention_sm90"]
-            == cuda_core[:10] + (ctypes.c_int,) + cuda_core[10:])
+            == tf32x3[:10] + (ctypes.c_int,) + tf32x3[10:])
 
 
 # (B, Sq, Sk, H, Hkv, D, causal, window): the DiT's cross-attention at

@@ -28,8 +28,9 @@ from repro_torch.config import get_config, replace
 from repro_torch.kernels.ssd_scan.ops import ssd_chunked_kernel
 from repro_torch.kernels.ssd_scan.ops import \
     ssd_intra_chunk as port_intra_chunk
-from repro_torch.kernels.ssd_scan.ref import (ssd_chunked_ref,
-                                              ssd_intra_chunk_ref)
+from repro_torch.kernels.ssd_scan.ref import (cumsum_f32, ssd_chunked_ref,
+                                              ssd_intra_chunk_ref,
+                                              ssd_tiles_ref)
 from repro_torch.models.ssm import Mamba2Mixer
 from repro_torch.weights import load_numpy
 
@@ -112,6 +113,31 @@ def test_ssd_chunked_contract_matches_jax(fn, case):
     assert y.shape == (b, l, h, p)
     _close(y, jy, TOL["float32"])
     _close(s, js, TOL["float32"])
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_cb_once_per_chunk_gives_the_per_head_tiles(shape):
+    """The kernel computes C·Bᵀ once per (b, c) and applies each head's
+    decay mask L_h to it (B and C are shared by the heads); that gives the
+    same f32 tiles as ``ssd_tiles_ref``, which broadcasts B and C over the
+    heads and forms C·Bᵀ per head."""
+    b, l, h, p, n, chunk = shape
+    x, dA, B, C = (torch.from_numpy(a) for a in _data(b + l + h, b, l, h,
+                                                      p, n))
+    y_want, st_want = ssd_tiles_ref(x, dA, B, C, chunk)
+    c, Q = l // chunk, chunk
+    cum = cumsum_f32(dA.reshape(b, c, Q, h).permute(0, 1, 3, 2))
+    cb = (C.reshape(b, c, Q, n) @ B.reshape(b, c, Q, n).transpose(-1, -2))
+    seg = cum[..., :, None] - cum[..., None, :]               # (b,c,h,Q,Q)
+    tril = torch.ones((Q, Q), dtype=torch.bool).tril()
+    S = torch.where(tril, cb[:, :, None] * torch.exp(seg), 0.0)
+    xs = x.reshape(b, c, Q, h, p).permute(0, 1, 3, 2, 4)      # (b,c,h,Q,p)
+    y = (S @ xs).permute(0, 1, 3, 2, 4).reshape(b, l, h, p)
+    decay = torch.exp(cum[..., -1:] - cum)                    # (b,c,h,Q)
+    st = (xs * decay[..., None]).transpose(-1, -2) @ \
+        B.reshape(b, c, 1, Q, n)
+    _close(y, y_want, 1e-6)
+    _close(st, st_want, 1e-6)
 
 
 def test_ssd_chunked_kernel_state_continuity():
