@@ -24,31 +24,56 @@ without the result line:
    wrong;
 3. end to end, DiT — for each diffusion serving path (``DIT_PATHS``: 30
    DDIM steps, and 30 DPM-Solver++(2M) steps with the shared-uncond CFG),
-   one ``SageServingEngine.step()`` at the full ``sage-dit`` width (28
-   layers, d_model 1152, 16 heads of 72, 1024 tokens, cond 77x768; text
-   tower dim 768, 4 layers; VAE to 512x512x3 in bf16; the same weights
-   for both) over 8 prompts from 2 themes, group_size 4, on the kernel
-   routes, with every launch count set to 0 just before and read just
-   after; every image must be finite, every kernel of the path launched
-   and no kernel off it, and every bf16 flash launch (self + cross a
+   eight ``SageServingEngine.step()`` calls at the full ``sage-dit`` width
+   (28 layers, d_model 1152, 16 heads of 72, 1024 tokens, cond 77x768;
+   text tower dim 768, 4 layers; VAE to 512x512x3 in bf16; the same
+   weights for both) over 8 prompts from 2 themes, group_size 4, on the
+   kernel routes (``STEP_ORDER``): the first captures each segment
+   runner's CUDA graph (``capture_s``); then, after one eager step to warm
+   up, replayed steps (``wall_s``), eager ones with the weights cast once
+   and eager ones casting each weight per call, two of each, alternating,
+   for a same-run reference.  Every launch count is set to 0 just before
+   each step and read just after: the wrappers count the launches they
+   make (the warm-up's and the one into a capture among them),
+   ``runners.REPLAYED`` those of graph replays, read from each graph's
+   kernel nodes; both must be exactly ``_want``'s for
+   the mode, from ``EXPECTED`` and every bf16 flash launch (self + cross a
    layer a step) on the sm90 route, the f32 text tower's on the tf32x3
-   route.  Each step then runs once more under ``torch.profiler`` for
-   device time by kernel and the busy share.  Then one DiT forward on the
-   CFG pair (batch 16) through the kernel, through plain attention in
-   bf16 and in f32: the kernel's mean error against f32 must stay within
-   1.25x the plain bf16 route's;
+   route.  NFE must be ``EXPECTED``'s, every image finite, no kernel off
+   the path launched, and the steps' ledgers and groups all equal.  Then
+   each runner (the graphs the steps replayed) against a direct eager
+   ``shared_phase`` / ``branch_phase`` call on copies of the same packed
+   inputs at full width: bitwise expected, at most 1e-3 (the end-to-end
+   latent tolerance), with both host-clock times and peak memories; a
+   second replay on other inputs must leave the first result as it was;
+   one replay alone is traced.  One more replayed step runs under
+   ``torch.profiler`` for device time by kernel and the busy share; each
+   trace's launches of the port's kernels are held to the counts
+   (``_trace_check``).
+   Then one DiT forward on the CFG pair (batch 16) through the kernel,
+   through plain attention in bf16 and in f32: the kernel's mean error
+   against f32 must stay within 1.25x the plain bf16 route's; and the
+   kernel forward with the weights cast once against the same forward
+   casting each weight per call, bitwise;
 4. end to end, ``mamba2`` — the AR shared-prefix path at the full
    ``mamba2-780m`` width (48 SSD layers, d_model 1536, 48 heads of 64,
    d_state 128, vocab 50280, bf16 activations): the launcher
    (``repro_torch.launch.serve``) at batch 4, 1024-token prompts, 32
    generated tokens, independent and ``--shared-prefix``; then
    ``shared_prefix_prefill`` on 2 groups of 4 requests (1024-token shared
-   prefix, 64-token tails) and 32 greedy decode steps.  ``ssd_scan`` must
+   prefix, 64-token tails) and 32 greedy decode steps, each decode both
+   through the decode graphs (``serving.runners.DecodeRunner``; the
+   launcher's own) and, for the groups, through an eager ``decode_step``
+   loop from the same cache: greedy tokens equal token for token, last
+   logits bitwise or within two bf16 ulps, tokens/s of both.  The weights
+   are cast once; a prefill with the copies must equal one without them
+   bitwise.  ``ssd_scan`` must
    launch once per layer of every prefill call and no other kernel at all;
    token-step counts must equal ``P + N (S - P)``; each group's logits must
    equal a full independent prefill's, within bf16's own error in bf16 and
    within 1e-3 of their magnitude in f32.  One trunk
-   prefill and the decode loop are then traced;
+   prefill and the replayed decode loop are then traced, each trace held
+   to the counts;
 5. reference — each path at smoke size on the card against the plain CPU
    path: equal groups, NFE, launches and token-step counts, images and
    logits within tolerance.
@@ -59,6 +84,7 @@ last line is ``{"ok": true, "device": {...}}``.  The port never calls
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
@@ -719,29 +745,76 @@ PATH_KERNELS = {"ddim": dict(needs=("flash_attention", "ddim_step"),
                                       "dpmpp_step", "group_mean"))}
 KERNELS = ("flash_attention", "ddim_step", "dpmpp_step", "group_mean",
            "ssd_scan")
+# each DiT path's step, as the reference engine counts it: NFE (2 groups of 4,
+# 9 shared and 21 branch steps; the shared-uncond CFG runs N + 1 rows a
+# branch step) and the step kernels' launches (one a step; the group mean
+# one a branch step); flash's are checked by route
+EXPECTED = {"ddim": dict(nfe=372, launches=dict(ddim_step=30)),
+            "dpmpp": dict(nfe=246, launches=dict(dpmpp_step=30,
+                                                 group_mean=21))}
 
 
 def _counters():
-    """Each kernel wrapper, whose ``launches`` counts its kernel launches."""
-    from repro_torch.kernels.ddim_step.ops import fused_cfg_ddim_step
-    from repro_torch.kernels.dpmpp_step.ops import fused_cfg_dpmpp_step
-    from repro_torch.kernels.flash_attention.ops import flash_attention
-    from repro_torch.kernels.group_mean.ops import masked_group_mean
-    from repro_torch.kernels.ssd_scan.ops import ssd_chunked_kernel
-    return {"flash_attention": flash_attention,
-            "ddim_step": fused_cfg_ddim_step,
-            "dpmpp_step": fused_cfg_dpmpp_step,
-            "group_mean": masked_group_mean,
-            "ssd_scan": ssd_chunked_kernel}
+    """Each kernel wrapper, whose ``launches`` counts the launches it
+    makes (a graph replay runs no wrapper: ``runners.REPLAYED``)."""
+    from repro_torch.serving.runners import WRAPPERS
+    return WRAPPERS
 
 
 def _reset_counts(counters):
-    """Every launch count to 0, flash's per-route counts too."""
+    """Every launch count to 0, flash's per-route counts and the graph
+    replays' too."""
+    from repro_torch.serving.runners import REPLAYED
     for fn in counters.values():
         fn.launches = 0
     routes = counters["flash_attention"].launches_by_route
     for r in routes:
         routes[r] = 0
+    for key in REPLAYED:
+        REPLAYED[key] = 0
+
+
+def _ran():
+    """The launches counted since ``_reset_counts``, keyed as
+    ``runners.launch_counts``: (by the wrappers, by graph replays)."""
+    from repro_torch.serving.runners import REPLAYED, launch_counts
+    return launch_counts(), dict(REPLAYED)
+
+
+def _summed(*counts):
+    return {k: sum(c[k] for c in counts) for k in counts[0]}
+
+
+# a served step's launches of the segments' kernels (the step kernels and
+# the DiT's flash on sm90), by the wrappers and by graph replays, in units
+# of one pass over the segments: a capturing step warms each segment up and
+# launches it into its capture (2) and replays it once (1); a replayed step
+# only replays; an eager step only runs the wrappers.  The text tower's f32
+# flash runs eagerly, once a step, in every mode.  The first eager step
+# warms the allocator up for eager activations; the second is the eager
+# reference, the third casts each weight per call as before the copies
+STEP_MODES = {"capture": (2, 1), "replay": (0, 1), "eager, first": (1, 0),
+              "eager": (1, 0), "eager, per-call casts": (1, 0)}
+# a DiT path's counted steps: the capture and a first eager step, then
+# the replayed, eager and per-call-cast steps twice, alternating, so that
+# host-clock noise shows between two steps of one mode
+STEP_ORDER = ("capture", "eager, first", "replay", "eager",
+              "eager, per-call casts", "replay", "eager",
+              "eager, per-call casts")
+
+
+def _want(path, routes, segments, text):
+    """Launch counts keyed as ``runners.launch_counts``: ``segments`` x the
+    path's segment kernels plus ``text`` x the text tower's flash."""
+    from repro_torch.serving.runners import launch_counts
+    want = dict.fromkeys(launch_counts(), 0)
+    want.update({k: segments * n
+                 for k, n in EXPECTED[path]["launches"].items()})
+    want["flash_attention/sm90"] = segments * routes["sm90"]
+    want["flash_attention/tf32x3"] = text * routes["tf32x3"]
+    want["flash_attention"] = (want["flash_attention/sm90"]
+                               + want["flash_attention/tf32x3"])
+    return want
 
 
 def _build_modules(cfg, tc, device, vae_dtype, seed=0):
@@ -768,43 +841,73 @@ def _engine(modules, path, device, seed=0):
                              step_impl="fused", seed=seed, device=device)
 
 
-def _serve(engine, prompts, path, failures, routes):
-    """One counted ``step()`` of ``path``: every launch count set to 0
-    just before, read just after; flash's per-route counts must equal
-    ``routes``.  Returns the counts."""
+def _capture_s(engine):
+    """Host seconds the engine's segment runners spent capturing."""
+    return sum(getattr(r, "capture_s", 0.0)
+               for r in engine.scheduler._runners.values())
+
+
+def _serve(engine, prompts, path, failures, routes, label):
+    """One counted ``step()`` of ``path`` in mode ``label``
+    (``STEP_MODES``): every launch count set to 0 just before, read just
+    after.  The wrappers' and the graph replays' counts must be exactly
+    ``_want``'s for the mode (flash's per route too), NFE ``EXPECTED``'s.
+    Returns (the launches the wrappers counted, those graph replays
+    counted, the step's own ledger (the engine's stats accumulate over
+    steps), the groups, the host-clock wall)."""
     import numpy as np
     import torch
 
     dev = torch.device("cuda:0")
     engine.submit(prompts)
-    counters = _counters()
-    _reset_counts(counters)
+    before = dict(engine.stats)
+    capture0 = _capture_s(engine)
+    _reset_counts(_counters())
     torch.cuda.synchronize()
+    held0 = torch.cuda.memory_allocated(dev)
+    reserved0 = torch.cuda.memory_reserved(dev)
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     done = engine.step()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {name: fn.launches for name, fn in counters.items()}
-    by_route = dict(counters["flash_attention"].launches_by_route)
+    wrappers, replayed = _ran()
     peak = torch.cuda.max_memory_allocated(dev)
+    held = torch.cuda.memory_allocated(dev) - held0
+    # a graph's private pool stays reserved, its blocks free between replays
+    reserved = torch.cuda.memory_reserved(dev) - reserved0
+    cap = _capture_s(engine) - capture0
 
-    st = engine.stats
+    st = {k: engine.stats[k] - before[k] for k in engine.stats}
     groups = {}
     for c in done:
         groups.setdefault(c.group_id, []).append(prompts.index(c.prompt))
-    log(f"[e2e:{path}] {PATHS[path]} requests={st['requests']} "
+    log(f"[e2e:{path}:{label}] {PATHS[path]} requests={st['requests']} "
         f"completed={len(done)} groups={sorted(groups.values())}")
-    log(f"[e2e:{path}] nfe={st['nfe']:g} nfe_independent="
-        f"{st['nfe_independent']:g} cost_saving={engine.cost_saving:.4f} "
+    log(f"[e2e:{path}:{label}] nfe={st['nfe']:g} nfe_independent="
+        f"{st['nfe_independent']:g} cost_saving="
+        f"{1 - st['nfe'] / st['nfe_independent']:.4f} "
         f"segment_launches={st['launches']} pack_rows={st['pack_rows']} "
         f"pack_pad_rows={st['pack_pad_rows']}")
-    log(f"[e2e:{path}] wall_s={wall:.3f} peak_mem_gib={peak / 2 ** 30:.3f} "
-        f"kernel_launches={launches} flash_by_route={by_route} (expected "
-        f"{routes})")
-    if by_route != routes:
-        failures.append(f"e2e {path}: flash launches by route {by_route}, "
-                        f"not {routes}")
+    w, r = STEP_MODES[label]
+    want_w, want_r = (_want(path, routes, w, 1), _want(path, routes, r, 0))
+    graphs = sum(len(getattr(r, "graphs", ()))
+                 for r in engine.scheduler._runners.values())
+    log(f"[e2e:{path}:{label}] wall_s={wall:.3f} capture_s={cap:.3f} "
+        f"peak_mem_gib={peak / 2 ** 30:.3f} held_after_gib="
+        f"{held / 2 ** 30:.3f} reserved_after_gib={reserved / 2 ** 30:.3f} "
+        f"graphs={graphs}")
+    log(f"[e2e:{path}:{label}] launches by the wrappers {wrappers} "
+        f"(expected {want_w}); by graph replays, read from the graphs' "
+        f"kernel nodes {replayed} (expected {want_r})")
+    if wrappers != want_w or replayed != want_r:
+        failures.append(f"e2e {path} {label}: launches {wrappers} by the "
+                        f"wrappers and {replayed} by graph replays, not "
+                        f"{want_w} and {want_r}")
+    want = EXPECTED[path]
+    if st["nfe"] != want["nfe"]:
+        failures.append(f"e2e {path} {label}: nfe {st['nfe']:g}, not "
+                        f"{want['nfe']}")
     if len(done) != len(prompts):
         failures.append(f"e2e {path}: {len(done)} completions for "
                         f"{len(prompts)} prompts")
@@ -812,8 +915,28 @@ def _serve(engine, prompts, path, failures, routes):
         if c.image.shape != (512, 512, 3) or not np.isfinite(c.image).all():
             failures.append(f"e2e {path}: image of {c.prompt!r} has shape "
                             f"{c.image.shape} or non-finite values")
-    _check_path_kernels(path, launches, failures)
-    return launches
+    _check_path_kernels(path, _summed(wrappers, replayed), failures)
+    return wrappers, replayed, st, sorted(groups.values()), wall
+
+
+@contextlib.contextmanager
+def _eager_segments(engine, per_call_casts):
+    """The scheduler's segments eager for a same-run reference: each
+    runner's body called directly, as on the CPU; with ``per_call_casts``
+    the DiT's cast-once copies hidden too, each weight then cast per call,
+    as before the copies existed."""
+    s = engine.scheduler
+    graphs = s._runners
+    s._runners = {k: r.fn for k, r in graphs.items()}
+    hidden = [(p, p.__dict__.pop("_casts", None))
+              for p in (s.dit._cast if per_call_casts else ())]
+    try:
+        yield
+    finally:
+        s._runners = graphs
+        for p, casts in hidden:
+            if casts is not None:
+                p.__dict__["_casts"] = casts
 
 
 def _check_path_kernels(path, launches, failures):
@@ -850,14 +973,124 @@ def phase_end_to_end(failures):
     launches = {}
     for path in DIT_PATHS:
         engine = _engine(modules, path, dev)
+        log(f"[e2e:{path}] DiT weights cast once to {cfg.dtype}: "
+            f"{engine.scheduler.cast_bytes / 2 ** 20:.1f} MiB")
         # bf16 DiT: self + cross a layer a step, on sm90; the f32 text
         # tower: one causal launch a layer, on tf32x3
         routes = {"sm90": 2 * cfg.n_layers * PATHS[path]["total_steps"],
                   "tf32x3": tc.n_layers}
-        launches[path] = _serve(engine, prompts, path, failures, routes)
-        _profile_step(engine, prompts, path)
+        steps = []
+        for mode in STEP_ORDER:
+            with (_eager_segments(engine, mode.endswith("casts"))
+                  if mode.startswith("eager") else contextlib.nullcontext()):
+                steps.append((mode, _serve(engine, prompts, path, failures,
+                                           routes, mode)))
+        if any(out[2:4] != steps[0][1][2:4] for _, out in steps):
+            failures.append(f"e2e {path}: the steps' ledgers and groups "
+                            f"differ: {[out[2:4] for _, out in steps]}")
+        walls = {}
+        for mode, out in steps:
+            walls.setdefault(mode, []).append(out[4])
+        mean = {mode: sum(w) / len(w) for mode, w in walls.items()}
+        log(f"[e2e:{path}] step walls, same run: " + "; ".join(
+            f"{mode} " + " / ".join(f"{x:.3f}" for x in w) + " s"
+            for mode, w in walls.items())
+            + f"; mean replayed / eager {mean['replay'] / mean['eager']:.3f}"
+            f", replayed / eager with per-call casts "
+            f"{mean['replay'] / mean['eager, per-call casts']:.3f}")
+        launches[path] = dict(steps)["replay"][:2]
+        _runner_check(engine, path, failures)
+        _profile_step(engine, prompts, path, failures)
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
     _bf16_forward_check(modules[0], failures)
     return launches
+
+
+def _float_like(x, gen):
+    """New values for a latent or a text-feature stack (ndim >= 3); index
+    tensors, the mask, the null cond and the grid as they are."""
+    import torch
+    if x.is_floating_point() and x.ndim >= 3:
+        return torch.randn(x.shape, device=x.device, generator=gen,
+                           dtype=x.dtype)
+    return x.clone()
+
+
+def _runner_check(engine, path, failures):
+    """Each segment runner of the served steps (its one graph, not a new
+    capture) against a direct eager ``shared_phase`` / ``branch_phase``
+    call on a copy of the same packed inputs: the served shapes and
+    indices, new latents and text features.  The same kernels run on the
+    same inputs, so the two should agree bitwise; the bar is 1e-3, the
+    port's end-to-end latent tolerance.  A second replay on other inputs
+    must leave the first result as it was.  Host-clock seconds (after a
+    sync) and peak memory of the eager call and of a replay."""
+    import torch
+    from repro_torch.core import shared_sampling as ss
+    from repro_torch.serving.kvcache import _map
+
+    s = engine.scheduler
+    dev = s.device
+    gen = torch.Generator(device=dev).manual_seed(3)
+
+    def eps_fn(z, t, c):
+        return s.dit(z, t, c, cfg=s.cfg)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, \
+            torch.cuda.max_memory_allocated(dev)
+
+    for key, run in list(s._runners.items()):
+        phase, n, samplers = key[:3]
+        sage, rs = s._runner_cfg(samplers)
+        (static, *_), = run.graphs.values()
+        a1, a2 = (_map(lambda x: _float_like(x, gen), static)
+                  for _ in range(2))
+        if phase == "shared":
+            def eager(a):
+                carry, cbar, null, grid = a
+                return ss.shared_phase(eps_fn, s.sched, sage, carry, cbar,
+                                       null, n, grid=grid, row_samplers=rs)
+        else:
+            def eager(a):
+                carry, cond, mask, null, fork, grid = a
+                return ss.branch_phase(eps_fn, s.sched, sage, carry, cond,
+                                       mask, null, n, fork, grid=grid,
+                                       row_samplers=rs)
+        want, eager_s, eager_peak = timed(
+            lambda: eager(_map(lambda x: x.clone(), a1)))
+        got, replay_s, replay_peak = timed(lambda: run(*a1))
+        kept = [x.clone() for x in got]
+        run(*a2)
+        intact = all(torch.equal(k, g) for k, g in zip(kept, got))
+        bitwise = all(torch.equal(g, w) for g, w in zip(got, want))
+        err = max((g.float() - w.float()).abs().max().item()
+                  for g, w in zip(got, want))
+        ok = (err <= 1e-3 and intact and len(run.graphs) == 1
+              and torch.equal(got.step_idx, want.step_idx))
+        log(f"[runner:{path}] {key[:3]} rows={got.z.shape[0]} "
+            f"{'bitwise equal' if bitwise else 'not bitwise'} to the eager "
+            f"phase, max_abs_err={err:.3e} tol=1e-3; first result intact "
+            f"after a second replay: {intact}; eager_s={eager_s:.4f} "
+            f"replay_s={replay_s:.4f} eager_peak_gib="
+            f"{eager_peak / 2 ** 30:.3f} replay_peak_gib="
+            f"{replay_peak / 2 ** 30:.3f} graphs={len(run.graphs)} "
+            f"capture_s={run.capture_s:.3f} replays={run.replays} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"runner {path} {key[:3]}: err {err:.3e}, "
+                            f"intact {intact}, graphs {len(run.graphs)}")
+        (_, graph, _, launches), = run.graphs.values()
+        label = f"{path} {key[:3]} one replay"
+        _trace_check(label, _profile(label, graph.replay, top=0), launches,
+                     failures)
 
 
 def _bf16_forward_check(dit, failures):
@@ -879,15 +1112,17 @@ def _bf16_forward_check(dit, failures):
     eps = {}
     for impl, dtype in (("kernel", "bfloat16"), ("naive", "bfloat16"),
                         ("naive", "float32")):
-        dit.cfg = replace(cfg, attn_impl=impl, dtype=dtype)
-        eps[impl, dtype] = dit(z, t, cond)
-    dit.cfg = cfg
+        eps[impl, dtype] = dit(z, t, cond, cfg=replace(cfg, attn_impl=impl,
+                                                       dtype=dtype))
     want = eps["naive", "float32"]
     err = {}
     for key in (("kernel", "bfloat16"), ("naive", "bfloat16")):
         diff = (eps[key] - want).abs()
         err[key] = (diff.mean().item(), diff.max().item())
     finite = all(bool(torch.isfinite(e).all()) for e in eps.values())
+    kcfg = replace(cfg, attn_impl="kernel")
+    _cast_check("sage-dit forward, CFG pair of 8, kernel route",
+                dit._cast, lambda: dit(z, t, cond, cfg=kcfg), failures)
     ok = finite and (err["kernel", "bfloat16"][0]
                      <= 1.25 * err["naive", "bfloat16"][0])
     log(f"[check] sage-dit bf16 forward, CFG pair of 8, against f32: "
@@ -906,18 +1141,71 @@ def _bf16_forward_check(dit, failures):
     torch.cuda.empty_cache()
 
 
-def _profile_step(engine, prompts, path):
-    """The same step once more under torch.profiler (the counted run above
-    is untraced)."""
+def _cast_check(label, params, forward, failures):
+    """``forward()`` with the weights cast once against the same forward
+    with the copies hidden, each weight then cast per call: bitwise
+    equal (the copy is ``w.to(dtype)``'s own bits)."""
+    import torch
+    with_copies = forward()
+    hidden = [(p, p.__dict__.pop("_casts", None)) for p in params]
+    try:
+        without = forward()
+    finally:
+        for p, casts in hidden:
+            if casts is not None:
+                p.__dict__["_casts"] = casts
+    same = torch.equal(with_copies, without)
+    err = (with_copies.float() - without.float()).abs().max().item()
+    log(f"[check] {label}: weights cast once vs cast per call "
+        f"{'bitwise equal' if same else 'DIFFER'} max_abs_err={err:.3e} "
+        f"{'ok' if same else 'FAIL'}")
+    if not same:
+        failures.append(f"{label}: weights cast once differ from a cast per "
+                        f"call by {err:.3e}")
+
+
+def _profile_step(engine, prompts, path, failures):
+    """The same step once more, its segments replayed, under
+    torch.profiler (the counted runs above are untraced), the trace's
+    launches of the port's kernels held to those the wrappers and the
+    graph replays counted in that step (``_trace_check``)."""
     engine.submit(prompts)
-    _profile(path, engine.step, ("ddim_step_kernel", "dpmpp_step_kernel",
-                                 "group_mean_kernel"))
+    _reset_counts(_counters())
+    rows = _profile(path, engine.step, ("ddim_step_kernel",
+                                        "dpmpp_step_kernel",
+                                        "group_mean_kernel"))
+    _trace_check(path, rows, _summed(*_ran()), failures)
 
 
-def _profile(label, fn, highlight=()):
-    """``fn()`` once under torch.profiler: device time by kernel, the top
-    ten and any ``highlight`` kernel wherever it ranks, and the device's
-    busy share of the traced wall time."""
+def _trace_check(label, rows, counted, failures):
+    """The profiler's launches of the port's kernels (by
+    ``runners.KERNEL_SYMBOLS``) against ``counted`` (keyed as
+    ``runners.launch_counts``): none beyond the count, and none missing
+    from the trace where the count has some.  The profiler can lose a few
+    records of a graph launch of tens of thousands of kernels, so the exact
+    counts are the wrappers' and the graphs' kernel nodes; the trace's
+    shortfall is printed."""
+    from repro_torch.serving.runners import KERNEL_SYMBOLS
+    traced = {key: sum(n for _, n, name in rows if sym in name)
+              for key, sym in KERNEL_SYMBOLS.items()}
+    want = {key: counted[key] for key in KERNEL_SYMBOLS}
+    short = {k: want[k] - traced[k] for k in want if traced[k] != want[k]}
+    ok = all(0 < traced[k] <= want[k] or traced[k] == want[k] == 0
+             for k in want)
+    log(f"[profile:{label}] the port's kernels in the trace {traced}, "
+        f"counted {want}: "
+        f"{'exact' if not short else f'short by {short}'} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"profile {label}: the trace launched {traced}, "
+                        f"the counts say {want}")
+
+
+def _profile(label, fn, highlight=(), top=10):
+    """``fn()`` once under torch.profiler: device time by kernel, the
+    ``top`` kernels and any ``highlight`` kernel wherever it ranks, and the
+    device's busy share of the traced wall time.  Returns every kernel's
+    (device microseconds, launches, name)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -940,9 +1228,10 @@ def _profile(label, fn, highlight=()):
     log(f"[profile:{label}] traced wall_s={wall:.3f} device_busy_s="
         f"{busy:.3f} busy_share={busy / wall:.3f} kernels={len(rows)}")
     for i, (us, n, key) in enumerate(rows):
-        if i < 10 or any(k in key for k in highlight):
-            log(f"[profile:{label}]   {us / 1e3:10.2f} ms "
+        if i < top or any(k in key for k in highlight):
+            log(f"[profile:{label}]   {us / 1e3:11.4f} ms "
                 f"{us / 1e4 / busy:5.1f}% x{n:<6d} {key[:90]}")
+    return rows
 
 
 def _group_tokens(rng, vocab, groups, members, prefix, tail):
@@ -987,6 +1276,7 @@ def phase_mamba2(failures):
     from repro_torch.launch.serve import serve
     from repro_torch.models import transformer as tfm
     from repro_torch.serving.kvcache import fork_model_cache
+    from repro_torch.serving.runners import DecodeRunner
     from repro_torch.serving.shared_prefill import shared_prefix_prefill
 
     dev = torch.device("cuda:0")
@@ -1007,7 +1297,11 @@ def phase_mamba2(failures):
         f"{s.d_state} chunk {s.chunk} vocab {cfg.vocab} dtype {cfg.dtype}; "
         f"{n_params / 1e6:.1f} M params; set-up "
         f"{time.perf_counter() - t0:.2f} s; allocated before it "
-        f"{held / 2 ** 30:.3f} GiB")
+        f"{held / 2 ** 30:.3f} GiB; weights cast once to {cfg.dtype}: "
+        f"{model.cast_weights_() / 2 ** 20:.1f} MiB")
+    _cast_check("mamba2-780m prefill 1 x 256", model._cast,
+                lambda: tfm.prefill(model, np.arange(256)[None])[0],
+                failures)
     per_prefill = cfg.n_layers            # one ssd_scan launch per layer
     counters = _counters()
     _reset_counts(counters)
@@ -1022,7 +1316,8 @@ def phase_mamba2(failures):
                   shared_prefix=shared, device=dev, model=model)
         n = ssd.launches - before
         log(f"[e2e:mamba2] launcher shared_prefix={shared}: prefill_s="
-            f"{r['prefill_s']:.4f} decode_s={r['decode_s']:.4f} "
+            f"{r['prefill_s']:.4f} capture_s={r['capture_s']:.4f} (decode "
+            f"graphs) decode_s={r['decode_s']:.4f} "
             f"decode_tok_s={r['decode_tok_s']:.1f} cache_mib="
             f"{r['cache_bytes'] / 2 ** 20:.2f} token_steps="
             f"{r['token_steps']} ssd_launches={n}")
@@ -1039,7 +1334,9 @@ def phase_mamba2(failures):
     groups = list(_group_tokens(rng, cfg.vocab, spec["groups"],
                                 spec["members"], prefix, tail))
     max_len = prefix + tail + spec["gen"] + 8
-    timing = {"prefill_s": 0.0, "catch_up_s": 0.0, "decode_s": 0.0}
+    timing = {"prefill_s": 0.0, "catch_up_s": 0.0, "decode_s": 0.0,
+              "eager_decode_s": 0.0}
+    decode = DecodeRunner(model)
 
     def prefill_fn(t, m):
         torch.cuda.synchronize()
@@ -1064,12 +1361,15 @@ def phase_mamba2(failures):
         n = ssd.launches - before
         caught_up.append(logits.float())
         tok = logits.argmax(dim=-1)
-        t1 = time.perf_counter()
-        for i in range(spec["gen"]):
-            logits, caches = tfm.decode_step(model, caches, tok, pos + i)
-            tok = logits.argmax(dim=-1)
-        torch.cuda.synchronize()
-        timing["decode_s"] += time.perf_counter() - t1
+        eager, eager_s = _decode_loop(
+            lambda c, t, p: tfm.decode_step(model, c, t, p), caches, tok,
+            pos, spec["gen"])
+        decode.capture(caches, tok)
+        (toks, logits), decode_s = _decode_loop(decode, caches, tok, pos,
+                                                spec["gen"])
+        timing["decode_s"] += decode_s
+        timing["eager_decode_s"] += eager_s
+        _decode_check(f"group {g}", (toks, logits), eager, failures)
         want = _expected_steps(tokens)
         log(f"[e2e:mamba2] group {g}: {tokens.shape[0]} x {tokens.shape[1]} "
             f"tokens, prefix_len={stats['prefix_len']} token_steps="
@@ -1086,22 +1386,31 @@ def phase_mamba2(failures):
         if not torch.isfinite(logits).all():
             failures.append(f"e2e mamba2 group {g}: non-finite logits")
     torch.cuda.synchronize()
-    launches = {name: fn.launches for name, fn in counters.items()}
+    wrappers, replayed = _ran()
+    launches = _summed(wrappers, replayed)
     peak = torch.cuda.max_memory_allocated(dev)
     n_groups, members = spec["groups"], spec["members"]
     dec_tok = n_groups * members * spec["gen"]
     log(f"[e2e:mamba2] shared_prefix_prefill over {n_groups} groups: trunk "
         f"prefill_s={timing['prefill_s']:.4f} (2 x 1 x {prefix}) "
         f"prefill+catch_up_s={timing['catch_up_s']:.4f} decode "
-        f"{dec_tok} tokens in {timing['decode_s']:.4f} s = "
-        f"{dec_tok / timing['decode_s']:.1f} tok/s")
+        f"{dec_tok} tokens replayed in {timing['decode_s']:.4f} s = "
+        f"{dec_tok / timing['decode_s']:.1f} tok/s (decode graphs "
+        f"capture_s={decode.capture_s:.4f}); eager "
+        f"{timing['eager_decode_s']:.4f} s = "
+        f"{dec_tok / timing['eager_decode_s']:.1f} tok/s")
     log(f"[e2e:mamba2] peak_mem_gib={peak / 2 ** 30:.3f} (of which held "
-        f"before the path {held / 2 ** 30:.3f}) kernel_launches={launches}")
+        f"before the path {held / 2 ** 30:.3f}) launches by the wrappers "
+        f"{wrappers}; by graph replays (the decode graphs' kernel nodes) "
+        f"{replayed}")
     _check_path_kernels("mamba2", launches, failures)
-    if launches["ssd_scan"] != per_prefill * (2 + n_groups):
-        failures.append(f"e2e mamba2: {launches['ssd_scan']} ssd_scan "
+    if wrappers["ssd_scan"] != per_prefill * (2 + n_groups):
+        failures.append(f"e2e mamba2: {wrappers['ssd_scan']} ssd_scan "
                         f"launches, not {per_prefill} x {2 + n_groups} "
                         f"prefill calls")
+    if any(replayed.values()):
+        failures.append(f"e2e mamba2: the decode graphs hold kernels of "
+                        f"the port's: {replayed}")
 
     # lossless sharing: each group's forked-and-caught-up logits against
     # an independent prefill of the same tokens.  In bf16 the bound is
@@ -1135,21 +1444,62 @@ def phase_mamba2(failures):
         del ind, ind32, sh32
 
     prompt = groups[0][:1, :prefix]
-    _profile("mamba2 trunk prefill 1x1024",
-             lambda: tfm.prefill(model, prompt), ("ssd_intra_chunk",))
+    _reset_counts(counters)
+    rows = _profile("mamba2 trunk prefill 1x1024",
+                    lambda: tfm.prefill(model, prompt), ("ssd_tc_kernel",))
+    _trace_check("mamba2 trunk prefill", rows, _summed(*_ran()), failures)
     _, trunk = tfm.prefill(model, prompt)
     cache0 = fork_model_cache(trunk, members)
     tok0 = torch.zeros((members, 1), dtype=torch.long, device=dev)
-
-    def decode_loop():
-        c, tok = cache0, tok0
-        for i in range(spec["gen"]):
-            lg, c = tfm.decode_step(model, c, tok, prefix + i)
-            tok = lg.argmax(dim=-1)
-    _profile(f"mamba2 decode {spec['gen']} steps x {members}", decode_loop)
-    del model, trunk, cache0
+    decode.capture(cache0, tok0)
+    _reset_counts(counters)
+    label = f"mamba2 decode {spec['gen']} steps x {members}, replayed"
+    rows = _profile(label, lambda: _decode_loop(decode, cache0, tok0, prefix,
+                                                spec["gen"]))
+    _trace_check(label, rows, _summed(*_ran()), failures)
+    del model, trunk, cache0, decode
+    gc.collect()
     torch.cuda.empty_cache()
-    return launches
+    return wrappers, replayed
+
+
+def _decode_loop(step, cache, tok, pos, n):
+    """``n`` greedy steps of ``step(cache, token, pos) -> (logits,
+    cache)``: ((tokens (B, n), last logits), host seconds after a sync).
+    Each step's token is a new tensor (argmax of the logits the step
+    returned), so no entry aliases another."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = []
+    for i in range(n):
+        logits, cache = step(cache, tok, pos + i)
+        tok = logits.argmax(dim=-1)
+        out.append(tok)
+    torch.cuda.synchronize()
+    return (torch.cat(out, 1), logits), time.perf_counter() - t0
+
+
+def _decode_check(label, got, want, failures):
+    """The decode graphs' greedy tokens against the eager loop's, token for
+    token; the last logits bitwise, or within two bf16 ulps (2^-6 of
+    1 + |logits|, chip_smoke's bound for a flipped bf16 rounding)."""
+    import torch
+    (toks, logits), (etoks, elogits) = got, want
+    same_toks = torch.equal(toks, etoks)
+    bitwise = torch.equal(logits, elogits)
+    diff = (logits.float() - elogits.float()).abs()
+    err = diff.max().item()
+    worst = (diff / (2.0 ** -6 * (1 + elogits.float().abs()))).max().item()
+    ok = same_toks and worst <= 1.0
+    log(f"[check] mamba2 decode graphs vs eager loop, {label}: tokens "
+        f"{'equal' if same_toks else 'DIFFER'} ({toks.shape[0]} x "
+        f"{toks.shape[1]}), last logits "
+        f"{'bitwise equal' if bitwise else 'not bitwise'} "
+        f"max_abs_err={err:.3e} worst={worst:.3f} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"mamba2 decode graphs {label}: tokens equal "
+                        f"{same_toks}, logits worst {worst:.3f}")
 
 
 def phase_reference(failures):
@@ -1279,9 +1629,11 @@ def main() -> int:
     kernels = []
     for name in KERNELS:
         row = rows[name]
-        row["launches"] = sum(n[name] for n in launches.values())
-        row["launches_by_path"] = {path: n[name]
-                                   for path, n in launches.items()}
+        row["launches"] = sum(w[name] + r[name] for w, r in launches.values())
+        row["launches_by_path"] = {path: w[name] + r[name]
+                                   for path, (w, r) in launches.items()}
+        row["graph_replay_launches_by_path"] = {
+            path: r[name] for path, (w, r) in launches.items()}
         kernels.append(row)
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -26,6 +26,13 @@ of different step budgets — and ``row_samplers``, a per-row tuple of
 solver names for stacks mixing DDIM and DPM-Solver++ rows: each solver's
 update runs on its own row subset and is scattered back.
 
+Each phase is a host part and a body.  The host part (:func:`shared_phase`,
+:func:`branch_phase`) moves a host grid, the row split of a mixed stack and
+``fork_idx`` to the latents' device; the body (:func:`shared_segment`,
+:func:`branch_segment`) takes device tensors only and makes no host-to-device
+copy and no sync, so a CUDA graph can capture it
+(``serving/runners.py``).
+
 Kernel routing: ``sage.step_impl == "fused"`` sends the CFG+solver update
 through ``kernels.dispatch.cfg_ddim_step`` / ``cfg_dpmpp_step`` and the
 shared-uncond group-mean latent through ``dispatch.group_mean`` (the
@@ -100,6 +107,16 @@ def _norm_row_samplers(sage: SageConfig,
     if len(set(row_samplers)) == 1:
         return _dc_replace(sage, sampler=row_samplers[0]), None
     return sage, row_samplers
+
+
+def segment_solver(sage: SageConfig, row_samplers: Optional[Sequence[str]],
+                   rows: int, device
+                   ) -> Tuple[SageConfig, Optional[RowSplit]]:
+    """A segment's solver, resolved on the host once: the scalar path's
+    config, or the deployment config and each solver's row subset (index
+    tensors on ``device``) for a stack of ``rows`` rows mixing solvers."""
+    sage, row_samplers = _norm_row_samplers(sage, row_samplers)
+    return sage, _row_split(row_samplers, rows, device)
 
 
 def _row_split(row_samplers: Optional[Tuple[str, ...]], rows: int,
@@ -259,6 +276,25 @@ def _step_index(carry: SampleCarry) -> torch.Tensor:
                            device=carry.z.device)
 
 
+def shared_segment(eps_fn: EpsFn, sched: Schedule, sage: SageConfig,
+                   carry: SampleCarry, cbar: torch.Tensor,
+                   null_cond: torch.Tensor, n_steps: int, grid: torch.Tensor,
+                   split: Optional[RowSplit] = None) -> SampleCarry:
+    """The body of :func:`shared_phase` over device tensors: ``carry``'s
+    ``step_idx`` a long tensor, ``grid`` the 1-D or 2-D long grid, ``sage``
+    and ``split`` from :func:`segment_solver`."""
+    z, eps_prev, i = carry
+    K = z.shape[0]
+    for _ in range(n_steps):
+        t, t_next = _grid_gather(grid, i), _grid_gather(grid, i + 1)
+        eps_u, eps_c = _eps_pair(eps_fn, z, t.expand(K), cbar, null_cond)
+        z, eps_prev = _step_update(
+            sched, sage, z, t, t_next, eps_u, eps_c, eps_prev,
+            _grid_gather(grid, torch.clamp_min(i - 1, 0)), i == 0, split)
+        i = i + 1
+    return SampleCarry(z, eps_prev, i)
+
+
 def shared_phase(eps_fn: EpsFn, sched: Schedule, sage: SageConfig,
                  carry: SampleCarry, cbar: torch.Tensor,
                  null_cond: torch.Tensor, n_steps: int,
@@ -274,49 +310,26 @@ def shared_phase(eps_fn: EpsFn, sched: Schedule, sage: SageConfig,
     lets rows mix solvers."""
     if n_steps <= 0:
         return carry
-    z, eps_prev = carry.z, carry.eps_prev
-    i = _step_index(carry)
-    K = z.shape[0]
+    z = carry.z
     grid = _grid(sched, sage, grid, z.device)
-    sage, row_samplers = _norm_row_samplers(sage, row_samplers)
-    split = _row_split(row_samplers, K, z.device)
-    for _ in range(n_steps):
-        t, t_next = _grid_gather(grid, i), _grid_gather(grid, i + 1)
-        eps_u, eps_c = _eps_pair(eps_fn, z, t.expand(K), cbar, null_cond)
-        z, eps_prev = _step_update(
-            sched, sage, z, t, t_next, eps_u, eps_c, eps_prev,
-            _grid_gather(grid, torch.clamp_min(i - 1, 0)), i == 0, split)
-        i = i + 1
-    return SampleCarry(z, eps_prev, i)
+    sage, split = segment_solver(sage, row_samplers, z.shape[0], z.device)
+    return shared_segment(eps_fn, sched, sage,
+                          carry._replace(step_idx=_step_index(carry)), cbar,
+                          null_cond, n_steps, grid, split)
 
 
-def branch_phase(eps_fn: EpsFn, sched: Schedule, sage: SageConfig,
-                 carry: SampleCarry, cond_flat: torch.Tensor,
-                 mask: torch.Tensor, null_cond: torch.Tensor, n_steps: int,
-                 fork_idx: Union[int, torch.Tensor],
-                 grid: Optional[torch.Tensor] = None,
-                 row_samplers: Optional[Sequence[str]] = None
-                 ) -> SampleCarry:
-    """Advance the per-member phase ``n_steps`` steps after a fork.
-
-    carry.z (K*N, H, W, C) from :func:`fork_carry`; cond_flat
-    (K*N, Lc, dc); mask (K, N), on the latents' device when the
-    shared-uncond group mean takes the kernel route.  ``fork_idx`` is the
-    global step each row forked at (int, or per-row (K*N,)): the solver
-    history restarts there.  ``grid`` / ``row_samplers`` as in
-    :func:`shared_phase`, per member row."""
-    if n_steps <= 0:
-        return carry
+def branch_segment(eps_fn: EpsFn, sched: Schedule, sage: SageConfig,
+                   carry: SampleCarry, cond_flat: torch.Tensor,
+                   mask: torch.Tensor, null_cond: torch.Tensor, n_steps: int,
+                   fork_idx: Union[int, torch.Tensor], grid: torch.Tensor,
+                   split: Optional[RowSplit] = None) -> SampleCarry:
+    """The body of :func:`branch_phase` over device tensors, as
+    :func:`shared_segment`'s; ``fork_idx`` an int or a tensor on the
+    latents' device."""
     K, N = mask.shape
-    z, eps_prev = carry.z, carry.eps_prev
+    z, eps_prev, i = carry
     if z.shape[0] != K * N:
         raise ValueError(f"carry has {z.shape[0]} rows, mask {K}x{N}")
-    if isinstance(fork_idx, torch.Tensor):
-        fork_idx = fork_idx.to(z.device)
-    i = _step_index(carry)
-    grid = _grid(sched, sage, grid, z.device)
-    sage, row_samplers = _norm_row_samplers(sage, row_samplers)
-    split = _row_split(row_samplers, K * N, z.device)
     if sage.shared_uncond_cfg:
         gm_impl = "kernel" if _fused_step(sage) else "reference"
         cc = torch.cat([null_cond.expand((K,) + tuple(null_cond.shape))
@@ -345,6 +358,34 @@ def branch_phase(eps_fn: EpsFn, sched: Schedule, sage: SageConfig,
             split)
         i = i + 1
     return SampleCarry(z, eps_prev, i)
+
+
+def branch_phase(eps_fn: EpsFn, sched: Schedule, sage: SageConfig,
+                 carry: SampleCarry, cond_flat: torch.Tensor,
+                 mask: torch.Tensor, null_cond: torch.Tensor, n_steps: int,
+                 fork_idx: Union[int, torch.Tensor],
+                 grid: Optional[torch.Tensor] = None,
+                 row_samplers: Optional[Sequence[str]] = None
+                 ) -> SampleCarry:
+    """Advance the per-member phase ``n_steps`` steps after a fork.
+
+    carry.z (K*N, H, W, C) from :func:`fork_carry`; cond_flat
+    (K*N, Lc, dc); mask (K, N), on the latents' device when the
+    shared-uncond group mean takes the kernel route.  ``fork_idx`` is the
+    global step each row forked at (int, or per-row (K*N,)): the solver
+    history restarts there.  ``grid`` / ``row_samplers`` as in
+    :func:`shared_phase`, per member row."""
+    if n_steps <= 0:
+        return carry
+    z = carry.z
+    if isinstance(fork_idx, torch.Tensor):
+        fork_idx = fork_idx.to(z.device)
+    grid = _grid(sched, sage, grid, z.device)
+    sage, split = segment_solver(sage, row_samplers, z.shape[0], z.device)
+    return branch_segment(eps_fn, sched, sage,
+                          carry._replace(step_idx=_step_index(carry)),
+                          cond_flat, mask, null_cond, n_steps, fork_idx,
+                          grid, split)
 
 
 def phase_split(total_steps: int, beta: float) -> Tuple[int, int]:

@@ -7,12 +7,17 @@ shared-prefix mode (one trunk prefill, forked to the batch).
         [--device cpu]
 
 The device defaults to CUDA and raises without a GPU.  The weights are
-random, drawn from seed 0; the prompts come from numpy's
-``RandomState(0)``, as in the JAX launcher, so both see the same tokens.
+random, drawn from seed 0, and cast to the activation dtype once; the
+prompts come from numpy's ``RandomState(0)``, as in the JAX launcher, so
+both see the same tokens.  On a CUDA device every decode step replays a
+CUDA graph (``serving.runners.DecodeRunner``, the counterpart of the JAX
+launcher's ``jax.jit(decode_step)``), captured before the decode clock
+starts; the prefill stays eager.  On the CPU the decode steps run eagerly.
 """
 from __future__ import annotations
 
 import argparse
+import functools
 import time
 from typing import Dict, Optional
 
@@ -23,6 +28,7 @@ from repro_torch import resolve_device
 from repro_torch.config import get_config
 from repro_torch.models import transformer as tfm
 from repro_torch.serving.kvcache import cache_bytes, fork_model_cache
+from repro_torch.serving.runners import DecodeRunner
 
 
 def _sync(device: torch.device) -> None:
@@ -37,14 +43,16 @@ def serve(arch: str = "mamba2-780m", *, smoke: bool = False, batch: int = 4,
     ``model`` reuses weights already on the device (else they are drawn
     from seed 0, as the JAX launcher draws its own from ``PRNGKey(0)``).
     Returns counts and host-clock times, each ending in a device sync:
-    ``prefill_s``, ``decode_s``, ``decode_tok_s``, ``cache_bytes``,
-    ``token_steps``, and the generated ``tokens`` (batch, gen) with the last
-    ``logits`` (batch, 1, V)."""
+    ``prefill_s``, ``capture_s`` (the decode graphs'; 0 on the CPU),
+    ``decode_s``, ``decode_tok_s``, ``cache_bytes``, ``cast_bytes`` (the
+    weights cast once), ``token_steps``, and the generated ``tokens``
+    (batch, gen) with the last ``logits`` (batch, 1, V)."""
     dev = resolve_device(device)
     cfg = get_config(arch, smoke=smoke)
     if model is None:
         model = tfm.LM(cfg, device=dev,
                        generator=torch.Generator(device=dev).manual_seed(0))
+    cast = model.cast_weights_()
     rng = np.random.RandomState(0)
     max_len = prompt_len + gen + 8
 
@@ -65,19 +73,29 @@ def serve(arch: str = "mamba2-780m", *, smoke: bool = False, batch: int = 4,
     tok = logits[:, -1:].argmax(dim=-1)
     if tok.shape[0] == 1 and batch > 1:
         tok = tok.repeat_interleave(batch, dim=0)
+    if dev.type == "cuda":
+        decode = DecodeRunner(model)
+        if gen:
+            decode.capture(cache, tok)
+    else:
+        decode = functools.partial(tfm.decode_step, model)
     out = []
+    _sync(dev)
     t0 = time.perf_counter()
     for i in range(gen):
-        logits, cache = tfm.decode_step(model, cache, tok, prompt_len + i)
+        logits, cache = decode(cache, tok, prompt_len + i)
         tok = logits.argmax(dim=-1)
         out.append(tok)
     _sync(dev)
     t_decode = time.perf_counter() - t0
     return {"arch": cfg.name, "batch": batch, "prompt_len": prompt_len,
             "gen": gen, "shared_prefix": shared_prefix, "device": str(dev),
-            "prefill_s": t_prefill, "decode_s": t_decode,
+            "prefill_s": t_prefill,
+            "capture_s": getattr(decode, "capture_s", 0.0),
+            "decode_s": t_decode,
             "decode_tok_s": batch * gen / max(t_decode, 1e-9),
-            "cache_bytes": cache_bytes(cache), "token_steps": steps_cost,
+            "cache_bytes": cache_bytes(cache), "cast_bytes": cast,
+            "token_steps": steps_cost,
             "tokens": torch.cat(out, dim=1).cpu().numpy() if out else
             np.zeros((batch, 0), np.int64),
             "logits": logits}
@@ -99,7 +117,8 @@ def main(argv=None) -> None:
     print(f"arch={r['arch']} batch={r['batch']} prompt={r['prompt_len']} "
           f"gen={r['gen']} shared_prefix={r['shared_prefix']} "
           f"device={r['device']}")
-    print(f"prefill {r['prefill_s']:.2f}s | decode {r['decode_s']:.2f}s "
+    print(f"prefill {r['prefill_s']:.2f}s | capture {r['capture_s']:.2f}s "
+          f"| decode {r['decode_s']:.2f}s "
           f"({r['decode_tok_s']:.1f} tok/s) | "
           f"cache {r['cache_bytes'] / 2 ** 20:.1f} MiB | "
           f"token-steps {r['token_steps']}")

@@ -14,7 +14,8 @@ from torch import nn
 
 from repro_torch.config import ModelConfig
 from repro_torch.kernels import dispatch
-from repro_torch.models.layers import apply_rope, dense_init, dot, rms_norm
+from repro_torch.models.layers import (apply_rope, cast, dense_init, dot,
+                                      rms_norm)
 
 
 def init_gqa(cfg: ModelConfig, *, device, generator) -> nn.ParameterDict:
@@ -48,9 +49,9 @@ def _qkv(p: Mapping[str, torch.Tensor], cfg: ModelConfig, x: torch.Tensor,
     k = dot(kv_src, p["wk"])
     v = dot(kv_src, p["wv"])
     if cfg.qkv_bias:
-        q = q + p["bq"].to(q.dtype)
-        k = k + p["bk"].to(k.dtype)
-        v = v + p["bv"].to(v.dtype)
+        q = q + cast(p["bq"], q.dtype)
+        k = k + cast(p["bk"], k.dtype)
+        v = v + cast(p["bv"], v.dtype)
     q = q.reshape(B, S, cfg.n_heads, hd)
     k = k.reshape(B, kv_src.shape[1], cfg.n_kv_heads, hd)
     v = v.reshape(B, kv_src.shape[1], cfg.n_kv_heads, hd)

@@ -15,9 +15,15 @@ from torch import nn
 from repro_torch import resolve_device
 from repro_torch.config import ModelConfig
 from repro_torch.models import attention as attn
-from repro_torch.models.layers import apply_mlp, dense_init, dot, init_mlp
+from repro_torch.models.layers import (apply_mlp, cast, cast_weights_,
+                                      dense_init, dot, init_mlp,
+                                      named_casts)
 
 _TDIM = 256
+#: the parameters the forward reads in the activation dtype (the timestep
+#: MLP and the adaLN projections run in f32, the q/k norms in f32)
+CAST = ("patch_in", "pos", "cond_proj", "wq", "wk", "wv", "wo", "bq", "bk",
+        "bv", "lnx", "wi", "wg", "out")
 
 
 def timestep_embedding(t: torch.Tensor, dim: int = _TDIM) -> torch.Tensor:
@@ -123,17 +129,30 @@ class DiT(nn.Module):
         self.final_adaln_b = _param(torch.zeros(2 * d, device=device))
         # small (not zero) init, as in the JAX package
         self.out = _param(dense_init(d, p_in, **kw) * 0.02)
+        # the weights cast_weights_ casts, found once
+        self._cast = tuple(named_casts(self, CAST))
+
+    def cast_weights_(self, dtype: Optional[torch.dtype] = None) -> int:
+        """Cast the weights the forward reads in ``dtype`` (default: the
+        config's activation dtype) once; returns the copies' bytes (0 in
+        f32).  Call it again after the weights change in place: stale
+        copies are refreshed where they lie."""
+        return cast_weights_(self._cast,
+                             dtype or getattr(torch, self.cfg.dtype))
 
     @torch.no_grad()
     def forward(self, z: torch.Tensor, t: torch.Tensor,
-                cond: torch.Tensor) -> torch.Tensor:
+                cond: torch.Tensor,
+                cfg: Optional[ModelConfig] = None) -> torch.Tensor:
         """z (B,H,W,C) latents at time t; t (B,); cond (B,Lc,cond_dim)
-        -> eps (B,H,W,C) f32."""
-        cfg = self.cfg
+        -> eps (B,H,W,C) f32.  ``cfg`` (default ``self.cfg``) is a caller's
+        own copy of the config, with its own attention route: a serving
+        engine passes its own and never writes into the module."""
+        cfg = cfg or self.cfg
         dtype = getattr(torch, cfg.dtype)
         hp, wp = z.shape[1] // cfg.patch, z.shape[2] // cfg.patch
         x = dot(patchify(cfg, z).to(dtype), self.patch_in)
-        x = x + pos_embed(self.pos, cfg, hp, wp).to(dtype)[None]
+        x = x + pos_embed(cast(self.pos, dtype), cfg, hp, wp)[None]
         temb = timestep_embedding(t)
         temb = dot(F.silu(dot(temb, self.t_w1)), self.t_w2)       # (B, d)
         c = dot(cond.to(dtype), self.cond_proj)                   # (B, Lc, d)
@@ -145,7 +164,7 @@ class DiT(nn.Module):
             h = _mod(_ln(x), sh1.to(dtype), sc1.to(dtype))
             x = x + g1[:, None, :].to(dtype) * attn.gqa_full(
                 bp.attn, cfg, h, causal=False)
-            hx = _ln(x) * (1.0 + bp.lnx.to(dtype))
+            hx = _ln(x) * (1.0 + cast(bp.lnx, dtype))
             x = x + attn.gqa_full(bp.xattn, cfg, hx, causal=False, memory=c)
             h = _mod(_ln(x), sh2.to(dtype), sc2.to(dtype))
             x = x + g2[:, None, :].to(dtype) * apply_mlp(bp.mlp, h,

@@ -6,19 +6,66 @@ parity tests compare like with like):
 * weights are (d_in, d_out) f32 and applied as ``x @ w.to(x.dtype)``
   (:func:`dot`), so activations run in the config's ``dtype``;
 * shapes: x (B, S, D); attention heads last-but-one: q (B, S, H, hd).
+
+Weights cast once: :func:`cast_weights_` gives a parameter a copy in a
+lower activation dtype, bitwise ``w.to(dtype)``, which :func:`cast` (and so
+:func:`dot`) reads instead of casting again on every call.  The copy is
+keyed on the parameter's ``_version`` and device: an in-place write to the
+weights (the weight bridge's ``copy_``, ``load_state_dict``) or a move to
+another device makes it stale, and a stale copy is never read.  A copy,
+once made, keeps its storage: refreshing it writes in place, so a CUDA
+graph captured on it stays valid.
 """
 from __future__ import annotations
 
 import math
-from typing import Mapping, Optional
+from typing import Iterable, Mapping, Optional
 
 import torch
 import torch.nn.functional as F
 
 
+def cast(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``w.to(dtype)``: its cast-once copy when it holds a current one."""
+    held = getattr(w, "_casts", {}).get(dtype)
+    if (held is not None and held[0] == w._version
+            and held[1].device == w.device):
+        return held[1]
+    return w.to(dtype)
+
+
 def dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x @ w with the weight cast to the activation dtype."""
-    return x @ w.to(x.dtype)
+    return x @ cast(w, x.dtype)
+
+
+def cast_weights_(params: Iterable[torch.Tensor], dtype: torch.dtype) -> int:
+    """Make or refresh each parameter's copy in ``dtype`` (none when it
+    already has that dtype) and return the copies' bytes.  A current copy
+    is left alone, a stale one rewritten in place."""
+    total = 0
+    with torch.no_grad():
+        for p in params:
+            if p.dtype == dtype:
+                continue
+            casts = p.__dict__.setdefault("_casts", {})
+            held = casts.get(dtype)
+            if held is None or held[1].device != p.device:
+                held = (p._version, p.detach().to(dtype))
+            elif held[0] != p._version:
+                held = (p._version, held[1].copy_(p))
+            casts[dtype] = held
+            total += held[1].numel() * held[1].element_size()
+    return total
+
+
+def named_casts(module: torch.nn.Module, names: Iterable[str]
+                ) -> Iterable[torch.Tensor]:
+    """``module``'s parameters whose last name component is in ``names``:
+    the weights a model reads in its activation dtype."""
+    names = set(names)
+    return (p for n, p in module.named_parameters()
+            if n.rsplit(".", 1)[-1] in names)
 
 
 def dense_init(d_in: int, d_out: int, *, device, generator) -> torch.Tensor:

@@ -17,7 +17,7 @@ from torch import nn
 
 from repro_torch.config import ModelConfig
 from repro_torch.kernels import dispatch
-from repro_torch.models.layers import dense_init, dot, rms_norm
+from repro_torch.models.layers import cast, dense_init, dot, rms_norm
 
 Cache = Dict[str, torch.Tensor]
 
@@ -96,7 +96,7 @@ class Mamba2Mixer(nn.Module):
         A = -torch.exp(self.A_log)                                # (H,)
         y, final = dispatch.ssd(x * dt[..., None].to(x.dtype), dt * A, B_,
                                 C_, s.chunk, init_state)
-        y = y + x * self.D.to(x.dtype)[None, None, :, None]
+        y = y + x * cast(self.D, x.dtype)[None, None, :, None]
         out = self._post(y.reshape(B, S, d_in), z)
         if not return_cache:
             return out
@@ -135,7 +135,7 @@ class Mamba2Mixer(nn.Module):
         torch.mul(cache["state"], dA[..., None, None], out=state)
         state.add_(xf[..., None] * B_.float()[:, None, None, :])
         y = torch.einsum("bhpn,bn->bhp", state, C_.float()).to(u.dtype)
-        y = y + x * self.D.to(x.dtype)[None, :, None]
+        y = y + x * cast(self.D, x.dtype)[None, :, None]
         res = self._post(y.reshape(B, 1, d_in), z)
         conv = window[:, 1:]
         if out is not None:

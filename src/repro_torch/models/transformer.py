@@ -11,7 +11,7 @@ Public API (the model stands in for ``(params, cfg)``)
 ------------------------------------------------------
 LM(cfg, device=, generator=)                     -> model  (init_params)
 prefill(model, tokens, max_len)                  -> (last_logits, cache)
-decode_step(model, cache, token, pos)            -> (logits, cache)
+decode_step(model, cache, token, pos, out=)      -> (logits, cache)
 
 Ported: ``ssm`` layers with MLP kind ``none`` (mamba2).  Any other mixer
 or MLP kind raises ``NotImplementedError``.
@@ -25,10 +25,15 @@ from torch import nn
 
 from repro_torch import resolve_device
 from repro_torch.config import MIX_SSM, ModelConfig
-from repro_torch.models.layers import dot, rms_norm
+from repro_torch.models.layers import (cast, cast_weights_, dot,
+                                      named_casts, rms_norm)
 from repro_torch.models.ssm import Mamba2Mixer
 
 Cache = Dict[str, Any]
+#: the parameters the LM reads in its activation dtype (the tied embedding
+#: as the output head; the norms, the conv and the SSM's dt/A run in f32)
+CAST = ("embed", "head", "z_proj", "x_proj", "bc_proj", "dt_proj",
+        "out_proj", "D")
 
 _NOT_PORTED = ("not ported yet: ROADMAP.md §1, 'Next', item 2.4 (the "
                "other LLM mixers: attention KV cache, MoE, RG-LRU, MLA, "
@@ -103,6 +108,8 @@ class LM(nn.Module):
             for _ in range(n_blocks))
         self.suffix = nn.ModuleList(
             Layer(cfg, k, **kw) for k in suffix)
+        # the weights cast_weights_ casts, found once
+        self._cast = tuple(named_casts(self, CAST))
 
     @property
     def device(self) -> torch.device:
@@ -110,8 +117,17 @@ class LM(nn.Module):
 
     def logits(self, x: torch.Tensor) -> torch.Tensor:
         x = rms_norm(x, self.ln_f, self.cfg.rms_eps)
-        head = self.embed.t() if self.cfg.tie_embeddings else self.head
-        return dot(x, head)
+        if self.cfg.tie_embeddings:
+            return x @ cast(self.embed, x.dtype).t()
+        return dot(x, self.head)
+
+    def cast_weights_(self, dtype: Optional[torch.dtype] = None) -> int:
+        """Cast the weights read in ``dtype`` (default: the config's
+        activation dtype) once; returns the copies' bytes (0 in f32).  Call
+        it again after the weights change in place: stale copies are
+        refreshed where they lie."""
+        return cast_weights_(self._cast,
+                             dtype or getattr(torch, self.cfg.dtype))
 
 
 def _stack(trees: Sequence[Any]) -> Any:
@@ -166,27 +182,32 @@ def prefill(model: LM, tokens, max_len: int = 0
 
 
 @torch.no_grad()
-def decode_step(model: LM, cache: Cache, token, pos=None
-                ) -> Tuple[torch.Tensor, Cache]:
+def decode_step(model: LM, cache: Cache, token, pos=None,
+                out: Optional[Cache] = None) -> Tuple[torch.Tensor, Cache]:
     """token (B,1) -> (logits (B,1,V), cache).  ``pos`` places attention
     caches' writes, which the ported mixers do not have.  The input cache is
-    left as it is (forked caches may share it)."""
+    left as it is (forked caches may share it); the new one is written into
+    ``out``'s tensors when given (a cache of the same structure and shapes,
+    as a decode graph's second cache set), else into new ones."""
     cfg = model.cfg
     x = model.embed[_tokens(model, token)].to(getattr(torch, cfg.dtype))
-    new: Cache = {"prefix": [], "suffix": []}
-    for layer, c in zip(model.prefix, cache["prefix"]):
-        x, nc = apply_layer(layer, cfg, x, mode="decode", cache=c)
+    if out is None:
+        # each layer writes its new cache into its slot of freshly allocated
+        # stacked leaves: nothing is re-stacked per step
+        out = {"prefix": [None] * len(model.prefix),
+               "blocks": _map(torch.empty_like, cache["blocks"]),
+               "suffix": [None] * len(model.suffix)}
+    new: Cache = {"prefix": [], "blocks": out["blocks"], "suffix": []}
+    for layer, c, o in zip(model.prefix, cache["prefix"], out["prefix"]):
+        x, nc = apply_layer(layer, cfg, x, mode="decode", cache=c, out=o)
         new["prefix"].append(nc)
-    # each layer writes its new cache into its slot of freshly allocated
-    # stacked leaves: nothing is re-stacked per step
     n = len(model.blocks)
-    new["blocks"] = _map(torch.empty_like, cache["blocks"])
     for bm, bc, bn in zip(model.blocks, _unbind(cache["blocks"], n),
-                          _unbind(new["blocks"], n)):
+                          _unbind(out["blocks"], n)):
         for name, layer in bm.items():
             x, _ = apply_layer(layer, cfg, x, mode="decode", cache=bc[name],
                                out=bn[name])
-    for layer, c in zip(model.suffix, cache["suffix"]):
-        x, nc = apply_layer(layer, cfg, x, mode="decode", cache=c)
+    for layer, c, o in zip(model.suffix, cache["suffix"], out["suffix"]):
+        x, nc = apply_layer(layer, cfg, x, mode="decode", cache=c, out=o)
         new["suffix"].append(nc)
     return model.logits(x), new

@@ -5,7 +5,10 @@ Request lifecycle:
   (greedy cliques over the tau threshold graph) -> Alg. 1 shared sampling
   in packed segments -> VAE decode -> responses + NFE accounting.
 
-``step()`` delegates to :meth:`RequestScheduler.run_batch`.
+``step()`` delegates to :meth:`RequestScheduler.run_batch`, whose segment
+runners (CUDA graphs on a CUDA device) live on the scheduler and go with
+the engine.  The text tower and the VAE decoder run eagerly, once per
+batch.
 """
 from __future__ import annotations
 
@@ -32,13 +35,13 @@ class SageServingEngine:
                  step_impl: Optional[str] = None,
                  noise_fn: Optional[NoiseFn] = None, device="cuda"):
         """``attn_impl`` / ``step_impl`` override the DiT's and the
-        sampler's kernel routes (``attn_impl`` is written into the DiT's
-        config in place): ``attn_impl="kernel"`` + ``step_impl="fused"``
-        runs the sampling hot path on the hand-written CUDA kernels.  The
-        text tower keeps its own config's route.  ``device`` defaults to
-        CUDA and raises without a GPU; the modules must live there."""
-        if attn_impl is not None:
-            dit.cfg = config_replace(dit.cfg, attn_impl=attn_impl)
+        sampler's kernel routes (``attn_impl`` in the scheduler's own copy
+        of the DiT config: the module is left as it is, so engines sharing
+        one DiT keep their own routes): ``attn_impl="kernel"`` +
+        ``step_impl="fused"`` runs the sampling hot path on the hand-written
+        CUDA kernels.  The text tower keeps its own config's route.
+        ``device`` defaults to CUDA and raises without a GPU; the modules
+        must live there."""
         if step_impl is not None:
             sage = config_replace(sage, step_impl=step_impl)
         self.sage = sage
@@ -46,7 +49,7 @@ class SageServingEngine:
         self.scheduler = RequestScheduler(
             sage, dit, text, vae, sched=sched, group_size=group_size,
             branch_buckets=branch_buckets, seed=seed, noise_fn=noise_fn,
-            device=device)
+            attn_impl=attn_impl, device=device)
 
     def submit(self, prompts: Sequence[str]) -> None:
         self.queue.extend(prompts)

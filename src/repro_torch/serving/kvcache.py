@@ -2,7 +2,9 @@
 
 Caches are trees of nested dicts and lists with tensor leaves, in the
 JAX package's structure; every function returns a new tree and leaves
-its input as it is.
+its input as it is.  The tree helpers also walk (named) tuples and pass
+non-tensor leaves through, for the graph runners' inputs
+(``serving/runners.py``).
 """
 from __future__ import annotations
 
@@ -15,8 +17,10 @@ def _map(fn: Callable[[torch.Tensor], torch.Tensor], tree: Any) -> Any:
     if isinstance(tree, dict):
         return {k: _map(fn, v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(_map(fn, v) for v in tree)
-    return fn(tree)
+        items = [_map(fn, v) for v in tree]
+        return type(tree)(*items) if hasattr(tree, "_fields") \
+            else type(tree)(items)
+    return fn(tree) if isinstance(tree, torch.Tensor) else tree
 
 
 def _leaves(tree: Any):

@@ -6,6 +6,16 @@ the cosine-similarity graph, launch one sampling trajectory per group, and
 drain all groups through phase-aligned packed segments (ONE stacked
 launch per phase per drain tick, across beta buckets), then VAE-decode.
 
+Each segment goes through the runner of its key, as in the JAX scheduler
+(``_shared_runner`` / ``_branch_runner``, keyed by phase, n_steps and
+samplers): on a CUDA device a :class:`~repro_torch.serving.runners.
+SegmentRunner`, which captures a CUDA graph per input signature and
+replays it, the counterpart of the JAX runners' ``jax.jit``; on the CPU
+the segment's body, eagerly (the port's device rule).  Packing, the
+scatter and the NFE ledger stay on the host, outside the graphs.  The
+DiT's weights are cast to the activation dtype once, when the scheduler
+is built.
+
 This is the JAX scheduler's ``run_batch`` and what it uses; the streaming
 tick loop, QoS, fault injection, the trunk cache and telemetry come with
 later slices.
@@ -21,26 +31,32 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 from dataclasses import replace as dc_replace
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from repro_torch import resolve_device
 from repro_torch.config import SageConfig
+from repro_torch.config import replace as config_replace
 from repro_torch.core import grouping
 from repro_torch.core.schedule import Schedule, make_schedule
-from repro_torch.core.shared_sampling import (SampleCarry, branch_phase,
-                                              branch_phase_nfe, fork_carry,
+from repro_torch.core.shared_sampling import (SampleCarry,
+                                              branch_phase_nfe,
+                                              branch_segment, fork_carry,
                                               group_mean, init_carry,
-                                              phase_split, shared_phase,
-                                              shared_phase_nfe)
+                                              phase_split, segment_solver,
+                                              shared_phase_nfe,
+                                              shared_segment)
 from repro_torch.models.dit import DiT
 from repro_torch.models.text_encoder import TextTower, tokenize
 from repro_torch.models.vae import VAEDecoder
 from repro_torch.serving import packing
+from repro_torch.serving.runners import SegmentRunner
 
 NoiseFn = Callable[[int, Tuple[int, ...]], torch.Tensor]
+# a bucket's solver: one name (uniform pack) or one per row (mixed pack)
+Samplers = Union[str, Tuple[str, ...]]
 
 
 @dataclass
@@ -82,7 +98,10 @@ class RequestScheduler:
 
     ``group_size`` is the packed width N; ``group_max`` caps clique size
     during grouping (default N; larger cliques split over several rows).
-    The modules must live on ``device``."""
+    ``attn_impl`` overrides the DiT config's attention route in the
+    scheduler's own copy of the config (``self.cfg``), which every forward
+    of the scheduler is handed: the DiT module is never written.  The
+    modules must live on ``device``."""
 
     def __init__(self, sage: SageConfig, dit: DiT, text: TextTower,
                  vae: Optional[VAEDecoder] = None,
@@ -90,7 +109,7 @@ class RequestScheduler:
                  group_max: Optional[int] = None,
                  branch_buckets: Sequence[float] = (0.2, 0.3, 0.4),
                  seed: int = 0, noise_fn: Optional[NoiseFn] = None,
-                 device="cuda"):
+                 attn_impl: Optional[str] = None, device="cuda"):
         if group_size < 1:
             raise ValueError(f"group_size must be >= 1, got {group_size}")
         self.device = resolve_device(device)
@@ -101,7 +120,8 @@ class RequestScheduler:
             if dev.type != self.device.type:
                 raise ValueError(f"{name} lives on {dev}, scheduler device "
                                  f"is {self.device}")
-        self.cfg = dit.cfg
+        self.cfg = (dit.cfg if attn_impl is None
+                    else config_replace(dit.cfg, attn_impl=attn_impl))
         self.sage = sage
         self.sched = (sched or make_schedule(1000)).to(self.device)
         self.dit = dit
@@ -110,9 +130,14 @@ class RequestScheduler:
         self.group_size = group_size
         self.group_max = group_size if group_max is None else group_max
         self.branch_buckets = tuple(branch_buckets)
-        self._gen = torch.Generator().manual_seed(seed)
-        self.noise_fn = noise_fn or self._default_noise
+        gen = torch.Generator().manual_seed(seed)
+        self.noise_fn = noise_fn or (
+            lambda gid, shape: torch.randn(shape, generator=gen))
         self._next_gid = 0
+        # the DiT's weights in the activation dtype, cast once (bytes; 0 in
+        # f32); runners key -> segment runner (a CUDA graph per signature)
+        self.cast_bytes = dit.cast_weights_(getattr(torch, self.cfg.dtype))
+        self._runners: Dict[Tuple, Callable[..., SampleCarry]] = {}
         self.stats: Dict[str, float] = {
             "nfe": 0.0, "nfe_independent": 0.0, "requests": 0,
             "completed": 0,
@@ -140,13 +165,60 @@ class RequestScheduler:
         return torch.zeros((self.cfg.cond_len, self.cfg.cond_dim),
                            device=self.device)
 
-    def _default_noise(self, gid: int, shape: Tuple[int, ...]
-                       ) -> torch.Tensor:
-        del gid
-        return torch.randn(shape, generator=self._gen)
+    # -- segment runners (the JAX scheduler's, keyed the same way) ------
+    def _runner_cfg(self, samplers: Samplers
+                    ) -> Tuple[SageConfig, Optional[Tuple[str, ...]]]:
+        """A runner's solver: a NAME (uniform pack, the scalar path) or a
+        per-row tuple (mixed pack, ``row_samplers``)."""
+        if isinstance(samplers, str):
+            return dc_replace(self.sage, sampler=samplers), None
+        return self.sage, tuple(samplers)
 
-    def _eps_fn(self, z, t, c):
-        return self.dit(z, t, c)
+    def _runner(self, phase: str, n_steps: int, samplers: Samplers
+                ) -> Callable[..., SampleCarry]:
+        """The runner of key (phase, n_steps, samplers) and the attention
+        route every forward of this scheduler takes: the segment's body,
+        with the row split of a mixed pack built once here (the scheduler
+        hands the grid, the step and fork indices and the mask over on the
+        device).  On the CPU the body runs eagerly; on a CUDA device it
+        goes through a :class:`SegmentRunner`."""
+        key = (phase, n_steps, samplers, self.cfg.attn_impl, self.cfg.dtype)
+        if key in self._runners:
+            return self._runners[key]
+        sage, rs = self._runner_cfg(samplers)
+        sage, split = segment_solver(sage, rs, len(rs or ()), self.device)
+        dit, cfg, sched = self.dit, self.cfg, self.sched
+
+        def eps_fn(z, t, c):
+            return dit(z, t, c, cfg=cfg)
+
+        if phase == "shared":
+            def body(carry, cbar, null, grid):
+                return shared_segment(eps_fn, sched, sage, carry, cbar, null,
+                                      n_steps, grid, split)
+        else:
+            def body(carry, cond_flat, mask, null, fork_idx, grid):
+                return branch_segment(eps_fn, sched, sage, carry, cond_flat,
+                                      mask, null, n_steps, fork_idx, grid,
+                                      split)
+        run = body
+        if self.device.type == "cuda":
+            dtype = getattr(torch, cfg.dtype)
+            run = SegmentRunner(key, body,
+                                refresh=lambda: dit.cast_weights_(dtype))
+        self._runners[key] = run
+        return run
+
+    def _shared_runner(self, n_steps: int, samplers: Samplers
+                       ) -> Callable[..., SampleCarry]:
+        """``run(carry, cbar, null, grid) -> carry``: a shared segment."""
+        return self._runner("shared", n_steps, samplers)
+
+    def _branch_runner(self, n_steps: int, samplers: Samplers
+                       ) -> Callable[..., SampleCarry]:
+        """``run(carry, cond_flat, mask, null, fork_idx, grid) -> carry``:
+        a branch segment."""
+        return self._runner("branch", n_steps, samplers)
 
     # -- launch ----------------------------------------------------------
     @staticmethod
@@ -211,22 +283,20 @@ class RequestScheduler:
             if g.steps_done == g.total_steps:
                 g.state = "done"
 
-    def _bucket_sage(self, groups: Sequence[_Group],
-                     width: Optional[int] = None
-                     ) -> Tuple[SageConfig, Optional[Tuple[str, ...]]]:
-        """A bucket's solver: its groups' common sampler on the scalar path,
-        or the deployment config plus per-row names for a mixed bucket."""
-        rs = packing.pack_samplers(groups, width)
-        if rs is None:
-            return dc_replace(self.sage, sampler=groups[0].sampler), None
-        return self.sage, rs
+    @staticmethod
+    def _bucket_samplers(groups: Sequence[_Group],
+                         width: Optional[int] = None) -> Samplers:
+        """A bucket's solver: its groups' common sampler, or per-row names
+        for a mixed bucket."""
+        return packing.pack_samplers(groups, width) or groups[0].sampler
 
     def _advance_packed(self, todo: List[_Group], slice_steps: int) -> None:
         """One drain tick: bucket the groups by pack signature with
-        phase-aligned segment lengths, advance each bucket with ONE phase
-        call over a stacked carry, scatter back, then apply transitions in
-        ``todo`` order.  A branch pack's mask moves to the device once per
-        segment (the shared-uncond group mean reads it every step)."""
+        phase-aligned segment lengths, advance each bucket with ONE call of
+        its runner over a stacked carry, scatter back, then apply
+        transitions in ``todo`` order.  The grid and a branch pack's mask
+        move to the device before the call (the shared-uncond group mean
+        reads the mask every step)."""
         null = self._null_cond()
         seg_len: Dict[int, int] = {}
         for key, groups in packing.build_packs(todo, slice_steps,
@@ -234,24 +304,20 @@ class RequestScheduler:
             s = key.n_steps
             if key.phase == "shared":
                 carry, cbar = packing.pack_shared(groups)
-                sage, rs = self._bucket_sage(groups)
-                out = shared_phase(self._eps_fn, self.sched, sage, carry,
-                                   cbar, null, s,
-                                   grid=packing.pack_grid(groups,
-                                                          self.sched.T),
-                                   row_samplers=rs)
+                run = self._shared_runner(s, self._bucket_samplers(groups))
+                out = run(carry, cbar, null,
+                          packing.pack_grid(groups, self.sched.T
+                                            ).to(self.device))
                 packing.unpack_shared(out, groups)
                 self._count_launch(len(groups), 0)
             else:
                 carry, cond, mask, fork = packing.pack_branch(
                     groups, self.group_size)
-                sage, rs = self._bucket_sage(groups, self.group_size)
-                out = branch_phase(self._eps_fn, self.sched, sage, carry,
-                                   cond, mask.to(self.device), null, s, fork,
-                                   grid=packing.pack_grid(
-                                       groups, self.sched.T,
-                                       self.group_size),
-                                   row_samplers=rs)
+                run = self._branch_runner(
+                    s, self._bucket_samplers(groups, self.group_size))
+                out = run(carry, cond, mask.to(self.device), null, fork,
+                          packing.pack_grid(groups, self.sched.T,
+                                            self.group_size).to(self.device))
                 packing.unpack_branch(out, groups, self.group_size)
                 self._count_launch(*packing.pad_stats(groups,
                                                       self.group_size))

@@ -18,3 +18,9 @@ import pytest
 def _clear_jax_caches_per_module():
     yield
     jax.clear_caches()
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU (CUDA graphs, the hand-written "
+        "kernels); the test skips itself without one")

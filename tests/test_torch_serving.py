@@ -31,6 +31,7 @@ from repro_torch import weights
 from repro_torch.config import SageConfig, get_config, replace
 from repro_torch.core import shared_sampling as ss
 from repro_torch.core.schedule import make_schedule
+from repro_torch.kernels import dispatch
 from repro_torch.models import text_encoder as te
 from repro_torch.models.dit import DiT
 from repro_torch.serving import packing
@@ -211,6 +212,49 @@ def test_resumed_segments_equal_one_shot(step_impl):
                           cond, mask, null, 1, fork.step_idx)
     assert torch.equal(one.z, two.z)
     assert ss.branch_phase_nfe(mask, 2, False) == 2 * 2 * 2 * N
+
+
+def test_engines_sharing_a_dit_keep_their_own_attn_impl(monkeypatch):
+    """Two engines on one DiT, built on the kernel route and then the naive
+    one: each step runs its own route (the scheduler's copy of the config,
+    handed to every forward), and the DiT module is never written."""
+    cfg = replace(get_config("sage-dit", smoke=True), dtype="float32")
+    dit = DiT(cfg, device="cpu", generator=torch.Generator().manual_seed(6))
+    text = te.TextTower(replace(te.text_cfg(dim=cfg.cond_dim, layers=1),
+                                attn_impl="chunked"), device="cpu")
+    engines = {impl: SageServingEngine(
+        SageConfig(**_sage(total_steps=2)), dit, text, attn_impl=impl,
+        device="cpu") for impl in ("kernel", "naive")}
+    assert dit.cfg is cfg
+    seen = []
+    attention = dispatch.attention
+
+    def spy(*args, impl, **kw):
+        seen.append(impl)
+        return attention(*args, impl=impl, **kw)
+    monkeypatch.setattr(dispatch, "attention", spy)
+    for impl in ("kernel", "naive", "kernel"):
+        eng = engines[impl]
+        seen.clear()
+        eng.submit(PROMPTS[:3])
+        assert len(eng.step()) == 3
+        assert eng.scheduler.cfg.attn_impl == impl
+        # the text tower keeps its own route; every DiT forward takes impl
+        assert set(seen) == {"chunked", impl}, seen
+    assert dit.cfg is cfg
+
+
+# a static width of 0; modules on another device than the engine's
+@pytest.mark.parametrize("bad", [dict(group_size=0), dict(device="meta")])
+def test_failed_engine_construction_leaves_the_dit_config(bad):
+    cfg = get_config("sage-dit", smoke=True)
+    dit = DiT(cfg, device="cpu")
+    text = te.TextTower(te.text_cfg(dim=16, layers=1), device="cpu")
+    kw = dict(attn_impl="kernel", step_impl="fused", device="cpu")
+    kw.update(bad)
+    with pytest.raises(ValueError):
+        SageServingEngine(SageConfig(), dit, text, **kw)
+    assert dit.cfg is cfg and dit.cfg.attn_impl == "naive"
 
 
 def test_packing_pads_and_aligns():

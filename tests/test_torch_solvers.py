@@ -298,14 +298,14 @@ def test_engine_step_dpmpp_shared_uncond_matches_jax(bridged,  # noqa: F811
     # record, per branch segment, the rows' fork steps and whether each row
     # starts at its fork
     segs = []
-    branch = tsched.branch_phase
+    branch = tsched.branch_segment
 
-    def spy(eps_fn, sched, sage, carry, cond, mask, null, n, fork, **kw):
+    def spy(eps_fn, sched, sage, carry, cond, mask, null, n, fork, *rest):
         segs.append((tuple(fork.tolist()),
                      tuple((carry.step_idx == fork).tolist())))
         return branch(eps_fn, sched, sage, carry, cond, mask, null, n, fork,
-                      **kw)
-    monkeypatch.setattr(tsched, "branch_phase", spy)
+                      *rest)
+    monkeypatch.setattr(tsched, "branch_segment", spy)
     for eng in (jeng, teng):
         eng.submit(PROMPTS)
     want = jeng.step(adaptive=True)
