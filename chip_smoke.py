@@ -21,7 +21,12 @@ without the result line:
    plain version's and (for attention) the library's time, its bound and
    its achieved TFLOP/s.  Flash in bf16 runs the sm90 kernel, in f32 the
    3xTF32 one, each also at the shapes its padding and masking can get
-   wrong;
+   wrong.  The three step kernels, whose bytes bounds lie under a
+   launch's own cost, get two yardsticks (``[yardstick]`` lines): the
+   empty ``launch_floor_kernel`` at the kernel's grid and block, read
+   from a captured launch's graph node (``floor_ms``), and a copy of half
+   the kernel's bytes (``copy_ms``); their time per launch inside a
+   replayed step is on the ``[profile:<path>]`` lines;
 3. end to end, DiT — for each diffusion serving path (``DIT_PATHS``: 30
    DDIM steps, and 30 DPM-Solver++(2M) steps with the shared-uncond CFG),
    eight ``SageServingEngine.step()`` calls at the full ``sage-dit`` width
@@ -333,6 +338,46 @@ def _kernel_row(name, shape, err, ms, plain, bound, bound_by, library_ms,
                 bound_by=bound_by, library_ms=library_ms)
 
 
+def _yardsticks(failures, name, case, ms, bound, fn, nbytes):
+    """Two yardsticks of a step kernel whose bytes bound lies under a
+    launch's own cost: ``floor_ms``, the empty ``launch_floor_kernel``
+    launched with the grid and block of ``fn()``'s kernel (read from the
+    kernel node of a graph that captured ``fn()``), timed as the kernel is
+    (``time_ms``); ``copy_ms``, ``dst.copy_(src)`` of ``nbytes / 2`` bytes
+    (the kernel's bytes read plus written, each counted once, as a copy
+    reads and writes its bytes)."""
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.serving import runners
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    nodes = [n for n in runners.kernel_nodes(graph)
+             if runners.KERNEL_SYMBOLS[name] in n.symbol]
+    del graph
+    if len(nodes) != 1 or nodes[0].grid[2] != 1 or nodes[0].block[1:] != (
+            1, 1):
+        failures.append(f"yardstick {name}: kernel nodes {nodes}, want one "
+                        f"of a 2-D grid of 1-D blocks")
+        return {}
+    (bx, by, _), (threads, _, _) = nodes[0].grid, nodes[0].block
+    lib = _build.load_library()
+
+    def floor():
+        _build.check(lib.sage_launch_floor(
+            bx, by, threads, torch.cuda.current_stream().cuda_stream),
+            "launch_floor")
+    floor_ms = time_ms(floor, 200)
+    src = torch.zeros(nbytes // 2 // 4, device="cuda")
+    dst = torch.empty_like(src)
+    copy_ms = time_ms(lambda: dst.copy_(src), 200)
+    log(f"[yardstick] {name:12s} {case:34s} ms={ms:.6g} floor_ms="
+        f"{floor_ms:.6g} copy_ms={copy_ms:.6g} bound_ms={bound:.6g} "
+        f"grid={bx}x{by}x{threads} ms/floor={ms / floor_ms:.3f} "
+        f"ms<=2*bound_ms: {'yes' if ms <= 2 * bound else 'no'}")
+    return dict(floor_ms=floor_ms, copy_ms=copy_ms)
+
+
 def _step_cases(dev, gen, dtype, cases):
     """Latent stacks with per-row (``rows``) or broadcast (``2d``) grid
     positions on the real 30-step grid: two groups at steps 9 (the 0.3
@@ -398,6 +443,10 @@ def phase_kernels(failures):
                     rows["ddim_step"] = _kernel_row(
                         "ddim_step", f"{case} f32", err, ms, plain, bound,
                         "bytes", None)
+                    rows["ddim_step"].update(_yardsticks(
+                        failures, "ddim_step", f"{case} f32", ms, bound,
+                        lambda: fused_cfg_ddim_step(*args, clip_x0=clip),
+                        nbytes))
 
     # dpmpp_step: the same stacks on the DPM-Solver++ path; in the per-row
     # stacks the first group sits at its fork (history warm-up) and the
@@ -428,6 +477,10 @@ def phase_kernels(failures):
                     rows["dpmpp_step"] = _kernel_row(
                         "dpmpp_step", f"{case} f32", max(errs), ms, plain,
                         bound, "bytes", None)
+                    rows["dpmpp_step"].update(_yardsticks(
+                        failures, "dpmpp_step", f"{case} f32", ms, bound,
+                        lambda: fused_cfg_dpmpp_step(*args, clip_x0=clip),
+                        nbytes))
 
     # group_mean: the shared-uncond group-mean latent of the branch stack
     # (2 groups x 4 members of 64x64x4), full groups as on the path, and
@@ -456,6 +509,9 @@ def phase_kernels(failures):
                 rows["group_mean"] = _kernel_row(
                     "group_mean", f"{case} f32", err, ms, plain, bound,
                     "bytes", None)
+                rows["group_mean"].update(_yardsticks(
+                    failures, "group_mean", f"{case} f32", ms, bound,
+                    lambda: masked_group_mean(x, mask), nbytes))
 
     _flash_cases(failures, rows, dev, gen, FLASH_CASES)
     _flash_scale_signs(failures, dev, gen)
@@ -745,6 +801,8 @@ PATH_KERNELS = {"ddim": dict(needs=("flash_attention", "ddim_step"),
                                       "dpmpp_step", "group_mean"))}
 KERNELS = ("flash_attention", "ddim_step", "dpmpp_step", "group_mean",
            "ssd_scan")
+# the sampler-step kernels, whose bytes bound lies under a launch's cost
+STEP_KERNELS = ("ddim_step", "dpmpp_step", "group_mean")
 # each DiT path's step, as the reference engine counts it: NFE (2 groups of 4,
 # 9 shared and 21 branch steps; the shared-uncond CFG runs N + 1 rows a
 # branch step) and the step kernels' launches (one a step; the group mean
@@ -1174,7 +1232,20 @@ def _profile_step(engine, prompts, path, failures):
     rows = _profile(path, engine.step, ("ddim_step_kernel",
                                         "dpmpp_step_kernel",
                                         "group_mean_kernel"))
-    _trace_check(path, rows, _summed(*_ran()), failures)
+    counted = _summed(*_ran())
+    _trace_check(path, rows, counted, failures)
+    from repro_torch.serving.runners import KERNEL_SYMBOLS
+    per = []
+    for key in STEP_KERNELS:
+        mine = [(u, n) for u, n, name in rows if KERNEL_SYMBOLS[key] in name]
+        if counted[key] and mine:
+            us, n = map(sum, zip(*mine))
+            per.append(f"{key} {us / counted[key]:.4f} us a counted launch "
+                       f"(x{counted[key]}; {us / n:.4f} us a traced one, "
+                       f"x{n})")
+    log(f"[profile:{path}] step kernels in the step, device time per "
+        f"launch (traced total over the graphs' and wrappers' count): "
+        f"{'; '.join(per)}")
 
 
 def _trace_check(label, rows, counted, failures):

@@ -23,7 +23,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("ddim_step.cu", "dpmpp_step.cu", "flash_attention.cu",
-           "flash_attention_sm90.cu", "group_mean.cu", "ssd_scan.cu")
+           "flash_attention_sm90.cu", "group_mean.cu", "launch_floor.cu",
+           "ssd_scan.cu")
 #: headers the sources include (part of the build's hash)
 HEADERS = ("tf32x3.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -38,10 +39,11 @@ SIGNATURES = {
     "sage_ddim_step": (_P, _P, _P, _P, _P, _P, _P, _P, _F, _F, _LL, _LL,
                        _I, _I, _P),
     # z, eps_u, eps_c, eps_prev, out, eps_out, a_t, s_t, a_n, s_n, lam,
-    # lam_p, lam_n, first, guidance, clip_x0, n, n_per_row, row_stride,
-    # dtype, stream
+    # lam_p, lam_n, first (bool), guidance, clip_x0, n, n_per_row,
+    # row_stride, first_stride, then the launch plan: threads, vec; dtype,
+    # stream
     "sage_dpmpp_step": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                        _P, _F, _F, _LL, _LL, _I, _I, _P),
+                        _P, _F, _F, _LL, _LL, _I, _I, _I, _I, _I, _P),
     # q, k, v, out, B, Sq, Sk, H, Hkv, D, scale, causal, window, dtype,
     # stream; f32 only (dtype 0; bf16 takes the sm90 launcher)
     "sage_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
@@ -52,8 +54,12 @@ SIGNATURES = {
     # padded width -> the sm90 kernel's dynamic shared memory in bytes (not a
     # launcher)
     "sage_flash_attention_sm90_smem": (_I,),
-    # x, mask, out, K, N, F, dtype, stream
-    "sage_group_mean": (_P, _P, _P, _I, _I, _LL, _I, _P),
+    # x, mask, out, K, N, F, then the launch plan: threads, vec; dtype,
+    # stream
+    "sage_group_mean": (_P, _P, _P, _I, _I, _LL, _I, _I, _I, _P),
+    # blocks_x, blocks_y, threads, stream: an empty kernel (the launch's
+    # own cost, a yardstick for chip_smoke.py)
+    "sage_launch_floor": (_I, _I, _I, _P),
     # x, dA, B, C, y, states, batch, chunks, heads, Q, P, N, dtype, stream
     "sage_ssd_intra_chunk": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                              _I, _I, _P),

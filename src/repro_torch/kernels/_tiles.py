@@ -1,6 +1,7 @@
 """Per-row scalar broadcasting shared by the sampler math and the step
-kernels' plain versions (the JAX package's ``kernels/_tiles.py`` also
-holds the TPU lane/sublane tiling, which the port does not need)."""
+kernels' plain versions, and the step kernels' vector width on the card
+(the JAX package's ``kernels/_tiles.py`` holds the TPU lane/sublane
+tiling instead, which the port does not need)."""
 from __future__ import annotations
 
 import torch
@@ -37,3 +38,18 @@ def step_arrays(values, rows: int, device):
                              f"({rows},), got {tuple(v.shape)}")
         out.append((v.expand(rows) if per_row else v).contiguous())
     return out, int(per_row)
+
+
+# The step kernels' launches (``dpmpp_step``, ``group_mean``): one 16-byte
+# vector a thread where the rows and pointers allow it.
+
+#: a thread's vector: 4 f32 or 8 bf16, one 16-byte load
+VECTOR_BYTES = 16
+#: threads of a block at most (the kernels' ``__launch_bounds__``)
+MAX_THREADS = 256
+
+
+def aligned16(*tensors) -> bool:
+    """True if every tensor's data starts on a 16-byte boundary (a vector
+    load needs it)."""
+    return all(t.data_ptr() % VECTOR_BYTES == 0 for t in tensors)

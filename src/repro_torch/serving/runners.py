@@ -35,7 +35,7 @@ from __future__ import annotations
 
 import ctypes
 import time
-from typing import Any, Callable, Dict, Iterable, List, Tuple
+from typing import Any, Callable, Dict, Iterable, List, NamedTuple, Tuple
 
 import torch
 
@@ -146,18 +146,25 @@ def _cu(result: int, call: str) -> None:
         raise RuntimeError(f"{call} failed with CUresult {result}")
 
 
-def kernel_symbols(graph: torch.cuda.CUDAGraph) -> List[str]:
-    """The symbol of every kernel node of a captured graph (one a launch
-    of a replay), read back through libcuda.  A capture makes no
-    child-graph nodes; a kernel of the port's inside one would be missing
-    here, and :func:`capture`'s check would raise."""
+class KernelNode(NamedTuple):
+    """One kernel node of a captured graph: its symbol and launch shape."""
+    symbol: str
+    grid: Tuple[int, int, int]
+    block: Tuple[int, int, int]
+
+
+def kernel_nodes(graph: torch.cuda.CUDAGraph) -> List[KernelNode]:
+    """Every kernel node of a captured graph (one a launch of a replay),
+    read back through libcuda.  A capture makes no child-graph nodes; a
+    kernel of the port's inside one would be missing here, and
+    :func:`capture`'s check would raise."""
     cu = _libcuda()
     graph = ctypes.c_void_p(graph.raw_cuda_graph())
     n = ctypes.c_size_t(0)
     _cu(cu.cuGraphGetNodes(graph, None, ctypes.byref(n)), "cuGraphGetNodes")
     nodes = (ctypes.c_void_p * n.value)()
     _cu(cu.cuGraphGetNodes(graph, nodes, ctypes.byref(n)), "cuGraphGetNodes")
-    symbols, names = [], {}           # a function's symbol, looked up once
+    out, names = [], {}               # a function's symbol, looked up once
     for node in nodes:
         kind = ctypes.c_int()
         _cu(cu.cuGraphNodeGetType(node, ctypes.byref(kind)),
@@ -177,8 +184,13 @@ def kernel_symbols(graph: torch.cuda.CUDAGraph) -> List[str]:
                 _cu(cu.cuKernelGetName(ctypes.byref(name), p.kern),
                     "cuKernelGetName")
             names[fn] = name.value.decode()
-        symbols.append(names[fn])
-    return symbols
+        out.append(KernelNode(names[fn], tuple(p.grid), tuple(p.block)))
+    return out
+
+
+def kernel_symbols(graph: torch.cuda.CUDAGraph) -> List[str]:
+    """The symbol of every kernel node of a captured graph."""
+    return [node.symbol for node in kernel_nodes(graph)]
 
 
 def _warm_up(fn: Callable, args: Tuple) -> None:

@@ -93,7 +93,7 @@ def test_ddim_schedule_arrays():
     with pytest.raises(ValueError, match="per-row"):
         step_arrays((torch.tensor([0.1, 0.2, 0.3]), 0.2, 0.3, 0.4), 2,
                     "cpu")
-    # a per-row warm-up flag (the dpmpp kernel's eighth array) becomes 0/1
+    # a per-row bool flag becomes 0/1
     arrays, stride = step_arrays((0.5, torch.tensor([True, False])), 2,
                                  "cpu")
     assert stride == 1 and arrays[1].tolist() == [1.0, 0.0]

@@ -70,9 +70,18 @@ def _np(x):
 # dpmpp_step: the plain twin against the JAX kernel
 # ---------------------------------------------------------------------------
 
+# per-row stacks whose first half sits at its fork (step 9 of 30, the 0.3
+# share ratio's; history warm-up) and whose second half is mid-branch: the
+# shared phase's 2 trunks and the branch phase's 2 groups x 4 members
+FORK_STACKS = {"fork2": 2, "fork8": 8}
+
+
 def _dpmpp_inputs(rng, per_row, B):
     grid = ddim_timesteps(1000, 30)
-    if per_row:
+    if per_row in FORK_STACKS:
+        i = np.repeat([9, 12], B // 2)
+        first = i == 9
+    elif per_row:
         i = np.array([9, 9, 12, 12, 0, 29][:B])
         first = np.array([True, True, False, False, True, False][:B])
     else:
@@ -82,12 +91,12 @@ def _dpmpp_inputs(rng, per_row, B):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("clip_x0", [0.0, 3.0])
-@pytest.mark.parametrize("per_row", [False, True])
+@pytest.mark.parametrize("per_row", [False, True, *FORK_STACKS])
 def test_dpmpp_ref_matches_jax_kernel(per_row, clip_x0, dtype):
     """Broadcast and per-row launches, warm-up mixed across rows (rows at
     their fork next to rows mid-phase), both outputs."""
     rng = np.random.default_rng(hash((per_row, clip_x0, dtype)) % 2**32)
-    shape = (6, 9, 7, 3)
+    shape = (FORK_STACKS.get(per_row, 6), 9, 7, 3)
     z, eu, ec, ep = (_rand(rng, shape) for _ in range(4))
     t, tn, tp, first = _dpmpp_inputs(rng, per_row, shape[0])
     jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
@@ -174,10 +183,13 @@ def test_dpmpp_sampler_math_matches_jax(per_row, with_history, clip_x0):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("shape", [(3, 4, 8, 8, 4), (2, 3, 77, 5)])
+@pytest.mark.parametrize("shape", [(3, 4, 8, 8, 4), (2, 3, 77, 5),
+                                   (3, 1, 6, 5), (2, 8, 4, 4, 4),
+                                   (2, 64, 3, 7)])
 def test_group_mean_ref_matches_jax_kernel(shape, dtype):
     """A padded member (mask 0) and an all-zero mask row (count clamped
-    at 1e-6: the mean is 0)."""
+    at 1e-6: the mean is 0); N from 1 (the padded member is its whole
+    group) to 64, the kernel's most."""
     rng = np.random.default_rng(sum(shape))
     x = _rand(rng, shape)
     mask = np.ones(shape[:2], np.float32)
