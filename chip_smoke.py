@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch port on one NVIDIA GPU (H100, sm_90a).
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
 
-Run from the root of a checkout.  Five phases; any failure exits non-zero
+Run from the root of a checkout.  Six phases; any failure exits non-zero
 without the result line:
 
 1. build — compile the CUDA kernels under ``src/repro_torch/csrc`` with
@@ -24,9 +24,13 @@ without the result line:
    wrong.  The three step kernels, whose bytes bounds lie under a
    launch's own cost, get two yardsticks (``[yardstick]`` lines): the
    empty ``launch_floor_kernel`` at the kernel's grid and block, read
-   from a captured launch's graph node (``floor_ms``), and a copy of half
-   the kernel's bytes (``copy_ms``); their time per launch inside a
-   replayed step is on the ``[profile:<path>]`` lines;
+   from a captured launch's graph node (``floor_ms``) and held to the
+   wrapper's launch plan, and a copy of half the kernel's bytes
+   (``copy_ms``); their time per launch inside a replayed step is on the
+   ``[profile:<path>]`` lines.  ``ddim_step`` gathers its own schedule
+   values from the tables at the step's timesteps: one fused DDIM update,
+   captured alone in a CUDA graph, must be exactly one kernel node
+   (``[graph-nodes:ddim]``); a DPM-Solver++ update's nodes are counted;
 3. end to end, DiT — for each diffusion serving path (``DIT_PATHS``: 30
    DDIM steps, and 30 DPM-Solver++(2M) steps with the shared-uncond CFG),
    eight ``SageServingEngine.step()`` calls at the full ``sage-dit`` width
@@ -81,7 +85,14 @@ without the result line:
    to the counts;
 5. reference — each path at smoke size on the card against the plain CPU
    path: equal groups, NFE, launches and token-step counts, images and
-   logits within tolerance.
+   logits within tolerance;
+6. graph nodes — the kernel nodes of each DiT path's segment graphs
+   (``[graph-nodes:<path>]``), and the device time of one segment step
+   without the DiT (the solver's part of a step).  With ``--parent DIR``,
+   a checkout of the parent commit (``git archive``), a child process
+   serves one step of each path from that checkout's package at the same
+   width and measures both the same way; parent minus this tree must be
+   ``NODES_SAVED_PER_STEP`` x each segment's steps.
 
 The line before the last is ``nvidia-smi``'s name and power limit; the
 last line is ``{"ok": true, "device": {...}}``.  The port never calls
@@ -89,6 +100,7 @@ last line is ``{"ok": true, "device": {...}}``.  The port never calls
 """
 from __future__ import annotations
 
+import ast
 import contextlib
 import gc
 import json
@@ -208,6 +220,42 @@ def phase_build(failures):
     _sm90_report(_build, sass, lib_c, failures)
     for source, kernel in TF32X3_KERNELS:
         _tf32x3_report(_build, sass, source, kernel, failures)
+    _load_order_report(sass, "ddim_step_kernel")
+
+
+# the float arithmetic of the step kernels' SASS (a correctly rounded
+# division is FCHK, MUFU.RCP and FFMAs; MUFU is left out, as an integer
+# division by a value known at run time starts with one too)
+FLOAT_OPS = ("FADD", "FMUL", "FFMA", "FMNMX", "FCHK", "FSETP", "FSEL")
+
+
+def _load_order_report(sass, kernel):
+    """Per instantiation of ``kernel``: its global loads in SASS order (bits
+    a load) and how many are issued before the first float operation; a
+    load placed after a division's slow-path branch would wait for it."""
+    name, ops = None, {}
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1) if kernel in m.group(1) else None
+            if name:
+                ops[name] = []
+            continue
+        m = re.search(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)",
+                      line)
+        if name and m:
+            ops[name].append(m.group(1))
+    for name, seq in sorted(ops.items()):
+        loads = [i for i, op in enumerate(seq) if op.startswith("LDG")]
+        first = next((i for i, op in enumerate(seq)
+                      if op.split(".")[0] in FLOAT_OPS), len(seq))
+        bits = [re.search(r"\.(\d+)", seq[i]) for i in loads]
+        log(f"[build]   {_instantiation(name, kernel)}: {len(seq)} SASS "
+            f"instructions; global loads "
+            f"{[int(b.group(1)) if b else 32 for b in bits]} (bits); "
+            f"{sum(i < first for i in loads)} of {len(loads)} issued before "
+            f"the first float operation ({seq[first] if first < len(seq) else '-'}"
+            f" at {first})")
 
 
 SM90_KERNEL = "flash_sm90_kernel"
@@ -338,14 +386,15 @@ def _kernel_row(name, shape, err, ms, plain, bound, bound_by, library_ms,
                 bound_by=bound_by, library_ms=library_ms)
 
 
-def _yardsticks(failures, name, case, ms, bound, fn, nbytes):
+def _yardsticks(failures, name, case, ms, bound, fn, nbytes, plan=None):
     """Two yardsticks of a step kernel whose bytes bound lies under a
     launch's own cost: ``floor_ms``, the empty ``launch_floor_kernel``
     launched with the grid and block of ``fn()``'s kernel (read from the
     kernel node of a graph that captured ``fn()``), timed as the kernel is
     (``time_ms``); ``copy_ms``, ``dst.copy_(src)`` of ``nbytes / 2`` bytes
     (the kernel's bytes read plus written, each counted once, as a copy
-    reads and writes its bytes)."""
+    reads and writes its bytes).  ``plan``, (blocks, 1, threads) of the
+    wrapper's launch plan, must be the node's grid and block."""
     import torch
     from repro_torch.kernels import _build
     from repro_torch.serving import runners
@@ -361,6 +410,10 @@ def _yardsticks(failures, name, case, ms, bound, fn, nbytes):
                         f"of a 2-D grid of 1-D blocks")
         return {}
     (bx, by, _), (threads, _, _) = nodes[0].grid, nodes[0].block
+    if plan is not None and (bx, by, threads) != plan:
+        failures.append(f"yardstick {name}: the captured launch has grid "
+                        f"{bx}x{by} x {threads} threads, the plan "
+                        f"{plan[0]}x{plan[1]} x {plan[2]}")
     lib = _build.load_library()
 
     def floor():
@@ -376,6 +429,71 @@ def _yardsticks(failures, name, case, ms, bound, fn, nbytes):
         f"grid={bx}x{by}x{threads} ms/floor={ms / floor_ms:.3f} "
         f"ms<=2*bound_ms: {'yes' if ms <= 2 * bound else 'no'}")
     return dict(floor_ms=floor_ms, copy_ms=copy_ms)
+
+
+def _update_nodes(failures, dev, gen, sched):
+    """One fused solver update as a segment makes it
+    (``shared_sampling._step_update``), captured alone in a CUDA graph, its
+    kernel nodes read back (``[graph-nodes:ddim]``): a DDIM update must be
+    exactly one ``ddim_step_kernel`` node, no schedule gather, with per-row
+    timesteps (the serving path), one timestep for the stack, and per-row
+    timesteps of a 2-D grid.  A DPM-Solver++(2M) update's nodes are
+    counted, not checked: its kernel's scalar prologue (``samplers.
+    dpmpp_scalars``) is still PyTorch's."""
+    import torch
+    from repro_torch.config import SageConfig
+    from repro_torch.core import shared_sampling as ss
+    from repro_torch.core.schedule import ddim_timesteps
+    from repro_torch.serving.runners import KERNEL_SYMBOLS, kernel_nodes
+    z, eu, ec, ep = (torch.randn((8, 64, 64, 4), device=dev, generator=gen)
+                     for _ in range(4))
+    grid = torch.as_tensor(ddim_timesteps(1000, 30), device=dev)
+    idx = torch.tensor([9, 12], device=dev).repeat_interleave(4)
+    g2 = torch.zeros((8, 31), dtype=torch.long, device=dev)
+    g2[:4] = grid
+    g2[4:, :21] = torch.as_tensor(ddim_timesteps(1000, 20), device=dev)
+    steps = {"per-row t": (grid[idx], grid[idx + 1]),
+             "one t": (grid[idx[:1]][0], grid[idx[:1] + 1][0]),
+             "2-D grid t": (g2.gather(1, idx[:, None])[:, 0],
+                            g2.gather(1, idx[:, None] + 1)[:, 0])}
+
+    def nodes_of(fn):
+        fn()                                    # loads, first-call set-up
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        with torch.cuda.graph(graph):
+            fn()
+        names = [n.symbol for n in kernel_nodes(graph)]
+        del graph
+        return names
+
+    sage = SageConfig(**PATHS["ddim"], step_impl="fused")
+    for label, (t, tn) in steps.items():
+        names = nodes_of(lambda: ss._step_update(sched, sage, z, t, tn, eu,
+                                                  ec, ep, None, None))
+        ok = (len(names) == 1
+              and KERNEL_SYMBOLS["ddim_step"] in names[0])
+        log(f"[graph-nodes:ddim] one fused DDIM update captured alone, "
+            f"{label}: {len(names)} kernel node(s) "
+            f"{[_instantiation(n, KERNEL_SYMBOLS['ddim_step']) for n in names]}"
+            f" {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"graph nodes: a fused DDIM update ({label}) "
+                            f"is the kernels {names}, not one ddim_step")
+    sage = SageConfig(**PATHS["dpmpp"], step_impl="fused")
+    t, tn = steps["per-row t"]
+    tp, first = grid[torch.clamp_min(idx - 1, 0)], idx == 9
+    names = nodes_of(lambda: ss._step_update(sched, sage, z, t, tn, eu, ec,
+                                              ep, tp, first))
+    mine = sum(KERNEL_SYMBOLS["dpmpp_step"] in n for n in names)
+    prologue = {}
+    for n in names:
+        if KERNEL_SYMBOLS["dpmpp_step"] not in n:
+            prologue[n[:72]] = prologue.get(n[:72], 0) + 1
+    log(f"[graph-nodes:dpmpp] one fused DPM-Solver++(2M) update captured "
+        f"alone, per-row t: {len(names)} kernel nodes, {mine} of them "
+        f"dpmpp_step_kernel; the rest its scalar prologue, by kernel: "
+        f"{prologue}")
 
 
 def _step_cases(dev, gen, dtype, cases):
@@ -404,6 +522,7 @@ def phase_kernels(failures):
     from repro_torch.kernels.ddim_step.ref import fused_cfg_ddim_step_ref
     from repro_torch.kernels.dpmpp_step.ops import fused_cfg_dpmpp_step
     from repro_torch.kernels.dpmpp_step.ref import fused_cfg_dpmpp_step_ref
+    from repro_torch.kernels._tiles import launch_plan
     from repro_torch.kernels.group_mean.ops import masked_group_mean
     from repro_torch.kernels.group_mean.ref import masked_group_mean_ref
 
@@ -414,39 +533,49 @@ def phase_kernels(failures):
 
     # ddim_step: branch-phase stack of run_batch (2 groups x width 4 rows of
     # 64x64x4 latents) and its shared-phase stack (2 trunks), per-row
-    # scalars from the real 30-step grid; and the broadcast launch of
-    # shared_sample
+    # timesteps from the real 30-step grid; and the broadcast launch of
+    # shared_sample.  The kernel gathers its own schedule values from the
+    # tables at t and t_next, as the plain version does
     cases = [("rows", (8, 64, 64, 4)), ("2d", (8, 64, 64, 4)),
              ("rows", (2, 64, 64, 4))]      # the shared phase's 2 trunks
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).split(".")[1]
         for launch, shape, (z, eu, ec, _), t, tn, _, _ in _step_cases(
                 dev, gen, dtype, cases):
-            sc = samplers.ddim_scalars(sched, t, tn)
             for clip in (3.0, 0.0):
-                args = (z, eu, ec, 7.5, *sc)
+                args = (z, eu, ec, 7.5, sched.alphas, sched.sigmas, t, tn)
                 got = fused_cfg_ddim_step(*args, clip_x0=clip)
                 want = fused_cfg_ddim_step_ref(*args, clip_x0=clip)
                 ms = time_ms(lambda: fused_cfg_ddim_step(*args,
                                                          clip_x0=clip), 200)
                 plain = time_ms(lambda: fused_cfg_ddim_step_ref(
                     *args, clip_x0=clip), 50)
-                nbytes = 4 * z.numel() * z.element_size()
+                # the tiles, and each row's two timesteps and four gathered
+                # schedule values (one set for a broadcast launch)
+                nbytes = (4 * z.numel() * z.element_size()
+                          + (t.numel() + tn.numel()) * 8 + 4 * 4 * t.numel())
                 bound = max(nbytes / HBM_BYTES_PER_S,
                             10 * z.numel() / PEAK_FLOPS["float32"]) * 1e3
                 case = f"{launch} {tuple(shape)} clip={clip:g}"
                 err = _check(failures, "ddim_step", case, dn, got, want,
                              f"ms={ms:.6g} plain_ms={plain:.6g} "
                              f"bound_ms={bound:.6g}")
+                if dtype == torch.float32 and err != 0.0:
+                    failures.append(f"ddim_step {case} f32: error {err:.3e}"
+                                    f", not bitwise the plain version's")
                 if ((launch, shape, clip, dtype)
                         == ("rows", (8, 64, 64, 4), 3.0, torch.float32)):
+                    plan = launch_plan(z.numel(), z[0].numel(),
+                                       z.element_size(), True)
                     rows["ddim_step"] = _kernel_row(
                         "ddim_step", f"{case} f32", err, ms, plain, bound,
                         "bytes", None)
                     rows["ddim_step"].update(_yardsticks(
                         failures, "ddim_step", f"{case} f32", ms, bound,
                         lambda: fused_cfg_ddim_step(*args, clip_x0=clip),
-                        nbytes))
+                        nbytes, plan=(plan.blocks_per_row, plan.rows,
+                                      plan.threads)))
+    _update_nodes(failures, dev, gen, sched)
 
     # dpmpp_step: the same stacks on the DPM-Solver++ path; in the per-row
     # stacks the first group sits at its fork (history warm-up) and the
@@ -477,10 +606,12 @@ def phase_kernels(failures):
                     rows["dpmpp_step"] = _kernel_row(
                         "dpmpp_step", f"{case} f32", max(errs), ms, plain,
                         bound, "bytes", None)
+                    plan = launch_plan(z.numel(), z[0].numel(),
+                                       z.element_size(), True)
                     rows["dpmpp_step"].update(_yardsticks(
                         failures, "dpmpp_step", f"{case} f32", ms, bound,
                         lambda: fused_cfg_dpmpp_step(*args, clip_x0=clip),
-                        nbytes))
+                        nbytes, plan=(plan.blocks, 1, plan.threads)))
 
     # group_mean: the shared-uncond group-mean latent of the branch stack
     # (2 groups x 4 members of 64x64x4), full groups as on the path, and
@@ -1007,28 +1138,48 @@ def _check_path_kernels(path, launches, failures):
                             f"{launches[name]} times off its path")
 
 
-def phase_end_to_end(failures):
-    """One engine step per serving path at full sage-dit width on the kernel
-    routes, the same weights for both.  Returns each path's launch counts."""
+def _dit_setup(dev):
+    """The DiT paths' configurations and modules at full ``sage-dit`` width,
+    weights from seed 0: ``(cfg, text cfg, modules, set-up seconds)``."""
     import torch
     from repro_torch.config import get_config, replace
     from repro_torch.models.text_encoder import text_cfg
-
-    dev = torch.device("cuda:0")
     cfg = get_config("sage-dit")
     tc = replace(text_cfg(dim=768, layers=4), attn_impl="kernel")
     t0 = time.perf_counter()
     modules = _build_modules(cfg, tc, dev, torch.bfloat16)
     torch.cuda.synchronize()
+    return cfg, tc, modules, time.perf_counter() - t0
+
+
+def _segment_nodes(engine):
+    """The kernel nodes of each segment runner's graph, read through the
+    CUDA driver: {runner key (phase, n_steps, samplers): nodes}."""
+    from repro_torch.serving.runners import kernel_nodes
+    out = {}
+    for key, run in engine.scheduler._runners.items():
+        (_, graph, _, _), = run.graphs.values()
+        out[str(key[:3])] = len(kernel_nodes(graph))
+    return out
+
+
+def phase_end_to_end(failures):
+    """One engine step per serving path at full sage-dit width on the kernel
+    routes, the same weights for both.  Returns each path's launch counts
+    and the kernel nodes of its segment graphs."""
+    import torch
+
+    dev = torch.device("cuda:0")
+    cfg, tc, modules, setup_s = _dit_setup(dev)
     n_params = sum(p.numel() for p in modules[0].parameters())
     log(f"[e2e] {cfg.name}: {cfg.n_layers} layers d_model {cfg.d_model} "
         f"{cfg.n_heads} heads x {cfg.hd}, latent {cfg.latent_size}^2x"
         f"{cfg.latent_channels} -> {(cfg.latent_size // cfg.patch) ** 2} "
         f"tokens, cond {cfg.cond_len}x{cfg.cond_dim}, dtype {cfg.dtype}; "
         f"DiT {n_params / 1e6:.1f} M params; text tower dim {tc.d_model} x "
-        f"{tc.n_layers}; set-up {time.perf_counter() - t0:.2f} s")
+        f"{tc.n_layers}; set-up {setup_s:.2f} s")
     prompts = [p for pair in zip(*THEMES) for p in pair]
-    launches = {}
+    launches, nodes = {}, {}
     for path in DIT_PATHS:
         engine = _engine(modules, path, dev)
         log(f"[e2e:{path}] DiT weights cast once to {cfg.dtype}: "
@@ -1057,13 +1208,139 @@ def phase_end_to_end(failures):
             f", replayed / eager with per-call casts "
             f"{mean['replay'] / mean['eager, per-call casts']:.3f}")
         launches[path] = dict(steps)["replay"][:2]
+        nodes[path] = _segment_nodes(engine)
         _runner_check(engine, path, failures)
         _profile_step(engine, prompts, path, failures)
         del engine
         gc.collect()
         torch.cuda.empty_cache()
     _bf16_forward_check(modules[0], failures)
-    return launches
+    return launches, nodes
+
+
+# kernel nodes a fused DDIM update no longer makes, against the parent
+# commit's: the four schedule gathers (alphas[t], sigmas[t], alphas[t'],
+# sigmas[t'], now read by the kernel) and the 2M history indices a DDIM-only
+# segment built every step without reading them (i - 1, its clamp, the
+# t_prev gather, the warm-up flag's comparison)
+NODES_SAVED_PER_STEP = {"ddim": 8, "dpmpp": 0}
+
+
+def _solver_step_us():
+    """Device microseconds of one ``shared_segment`` step without the DiT
+    (its eps function hands back a fixed tensor), in a CUDA graph
+    (``time_ms``), for each DiT path's solver on the kernel route: the
+    branch stack of 8 rows of 64x64x4 f32 at per-row steps 9 and 12 of
+    the 30-step grid, as the serving path packs it.  What is left of a
+    step is the solver's part: the timestep gathers, the CFG pair's
+    ``cat``s, the update and the history indices."""
+    import torch
+    from repro_torch.config import SageConfig
+    from repro_torch.core import shared_sampling as ss
+    from repro_torch.core.schedule import ddim_timesteps, make_schedule
+    dev = torch.device("cuda:0")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    sched = make_schedule(1000, device=dev)
+    grid = torch.as_tensor(ddim_timesteps(1000, 30), device=dev)
+    z = torch.randn((8, 64, 64, 4), device=dev, generator=gen)
+    eps = torch.randn((16, 64, 64, 4), device=dev, generator=gen)
+    cond = torch.randn((8, 77, 768), device=dev, generator=gen)
+    null = torch.zeros((77, 768), device=dev)
+    step = torch.tensor([9, 12], device=dev).repeat_interleave(4)
+    carry = ss.SampleCarry(z, torch.zeros_like(z), step)
+    out = {}
+    for path in DIT_PATHS:
+        sage = SageConfig(**dict(PATHS[path], shared_uncond_cfg=False),
+                          step_impl="fused")
+        out[path] = 1e3 * time_ms(lambda: ss.shared_segment(
+            lambda zz, tt, cc: eps, sched, sage, carry, cond, null, 1,
+            grid), 200)
+    return out
+
+
+def phase_graph_nodes(failures, nodes, parent):
+    """Each DiT path's segment graphs: their kernel nodes (``[graph-nodes:
+    <path>]``), beside the same count from ``parent``, a checkout of the
+    parent commit whose own package this script drives in a child process
+    (``--segment-nodes``), when one is given.  There, parent - this must
+    be ``NODES_SAVED_PER_STEP`` x the segment's steps, key by key."""
+    step_us = _solver_step_us()
+    theirs = _parent_segment_nodes(failures, parent) if parent else None
+    their_us = theirs.pop("solver_step_us") if theirs else None
+    log(f"[graph-nodes] one segment step without the DiT, device us: "
+        f"{step_us}" + (f"; parent, same card: {their_us}" if their_us
+                        else ""))
+    for path in DIT_PATHS:
+        mine = nodes[path]
+        line = (f"[graph-nodes:{path}] kernel nodes of each replayed segment "
+                f"graph {mine}, total {sum(mine.values())}")
+        if theirs is None:
+            log(line + "; parent: not measured (--parent DIR, a checkout "
+                "of the parent commit)")
+            continue
+        k = NODES_SAVED_PER_STEP[path]
+        steps = {key: ast.literal_eval(key)[1] for key in mine}
+        want = {key: theirs[path].get(key, -1) - k * steps[key]
+                for key in mine}
+        ok = mine == want and set(theirs[path]) == set(mine)
+        saved = sum(theirs[path].values()) - sum(mine.values())
+        steps = sum(steps.values())
+        log(line + f"; parent {theirs[path]}, total "
+            f"{sum(theirs[path].values())}; parent - this = {saved}, "
+            f"expected k x steps = {k} x {steps} = {k * steps} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"graph nodes {path}: {mine}, parent "
+                            f"{theirs[path]}, want parent - {k} a step")
+
+
+def _parent_segment_nodes(failures, parent):
+    """``_segment_nodes`` of each DiT path served from ``parent``'s
+    ``src/repro_torch`` (a child process, which builds that checkout's
+    kernels there), or None after a failure."""
+    import os
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                        "--segment-nodes", str(parent)], env=env,
+                       capture_output=True, text=True, timeout=900)
+    log(f"[graph-nodes] parent {parent}: child exit {r.returncode} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    if r.returncode:
+        failures.append(f"graph nodes: the parent's child process exited "
+                        f"{r.returncode}: {r.stderr[-2000:]}")
+        return None
+    return json.loads(r.stdout.strip().splitlines()[-1])
+
+
+def segment_nodes_main(root: Path) -> int:
+    """Child mode: serve one step of each DiT path at full width from
+    ``root``'s package (set-up and routes as ``phase_end_to_end``) and print
+    ``_segment_nodes`` of each, and ``_solver_step_us``, as JSON."""
+    import torch
+    sys.path.insert(0, str(root / "src"))
+    import repro_torch
+    if root.resolve() not in Path(repro_torch.__file__).resolve().parents:
+        print(f"imported {repro_torch.__file__}, not {root}'s package",
+              file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda:0")
+    modules = _dit_setup(dev)[2]
+    prompts = [p for pair in zip(*THEMES) for p in pair]
+    out = {}
+    for path in DIT_PATHS:
+        engine = _engine(modules, path, dev)
+        engine.submit(prompts)
+        engine.step()
+        out[path] = _segment_nodes(engine)
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["solver_step_us"] = _solver_step_us()
+    print(json.dumps(out))
+    return 0
 
 
 def _float_like(x, gen):
@@ -1659,7 +1936,15 @@ def _reference_mamba2(failures):
                         f" err={err:.3e})")
 
 
-def main() -> int:
+def main(argv) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent", type=Path, default=None,
+                    help="a checkout of the parent commit: count its DiT "
+                    "segment graphs' kernel nodes beside this tree's")
+    ap.add_argument("--segment-nodes", type=Path, default=None,
+                    help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1668,6 +1953,13 @@ def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print(f"chip_smoke: no src/repro_torch beside {Path(__file__).name};"
               f" run it from a checkout of the repository", file=sys.stderr)
+        return 2
+    if args.segment_nodes is not None:
+        return segment_nodes_main(args.segment_nodes)
+    parent = args.parent.resolve() if args.parent else None
+    if parent is not None and not (parent / "src" / "repro_torch").is_dir():
+        print(f"chip_smoke: --parent {parent} holds no src/repro_torch",
+              file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1686,13 +1978,18 @@ def main() -> int:
     t1 = time.perf_counter()
     rows = phase_kernels(failures)
     t2 = time.perf_counter()
-    launches = phase_end_to_end(failures)
+    launches, nodes = phase_end_to_end(failures)
     launches["mamba2"] = phase_mamba2(failures)
     t3 = time.perf_counter()
     phase_reference(failures)
     t4 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_graph_nodes(failures, nodes, parent)
+    t5 = time.perf_counter()
     log(f"[time] build {t1 - t0:.1f} s, kernels {t2 - t1:.1f} s, "
-        f"e2e {t3 - t2:.1f} s, reference {t4 - t3:.1f} s")
+        f"e2e {t3 - t2:.1f} s, reference {t4 - t3:.1f} s, graph nodes "
+        f"{t5 - t4:.1f} s")
     if failures:
         for f in failures:
             print(f"chip_smoke FAILED: {f}", file=sys.stderr)
@@ -1715,4 +2012,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

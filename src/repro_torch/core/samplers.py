@@ -19,8 +19,8 @@ from repro_torch.kernels._tiles import bcast_rows
 
 
 def ddim_scalars(sched: Schedule, t: torch.Tensor, t_next: torch.Tensor):
-    """Per-step (a_t, s_t, a_n, s_n) schedule gathers for one DDIM update,
-    handed to the fused CFG+DDIM kernel as its scalar block."""
+    """Per-step (a_t, s_t, a_n, s_n) schedule gathers for one DDIM update
+    (the fused CFG+DDIM kernel gathers the same values itself)."""
     return (sched.alpha(t), sched.sigma(t),
             sched.alpha(t_next), sched.sigma(t_next))
 

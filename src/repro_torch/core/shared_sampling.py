@@ -37,8 +37,10 @@ Kernel routing: ``sage.step_impl == "fused"`` sends the CFG+solver update
 through ``kernels.dispatch.cfg_ddim_step`` / ``cfg_dpmpp_step`` and the
 shared-uncond group-mean latent through ``dispatch.group_mean`` (the
 hand-written kernels on a CUDA tensor); c̄ of the text features always
-takes the plain route.  The denoiser's attention backend is
-``ModelConfig.attn_impl``.
+takes the plain route.  The DDIM kernel takes the schedule's tables and
+the step's timesteps and gathers its own schedule values, so a fused DDIM
+update is one launch; a DDIM-only segment builds no 2M history indices.
+The denoiser's attention backend is ``ModelConfig.attn_impl``.
 """
 from __future__ import annotations
 
@@ -187,11 +189,10 @@ def _mixed_step_fused(sched: Schedule, sage: SageConfig, z, t, t_next,
     z_next, eps_hist = torch.empty_like(z), torch.empty_like(z)
     if "ddim" in split:
         ix = split["ddim"]
-        a_t, s_t, a_n, s_n = samplers.ddim_scalars(sched, tb[ix], tnb[ix])
         z_next[ix] = dispatch.cfg_ddim_step(
             z[ix], eps_u[ix], eps_c[ix], guidance=sage.guidance_scale,
-            a_t=a_t, s_t=s_t, a_n=a_n, s_n=s_n, clip_x0=sage.clip_x0,
-            impl="fused")
+            alphas=sched.alphas, sigmas=sched.sigmas, t=tb[ix],
+            t_next=tnb[ix], clip_x0=sage.clip_x0, impl="fused")
         eps_hist[ix] = eps_c[ix]
     if "dpmpp" in split:
         ix = split["dpmpp"]
@@ -213,7 +214,10 @@ def _step_update(sched: Schedule, sage: SageConfig, z, t, t_next,
     The fused DDIM route carries eps_c (as the JAX package does; DDIM
     never reads it), the fused 2M route the kernel's combined eps, the
     reference route the combined eps.  A ``split`` routes a mixed-solver
-    stack through the per-subset updates."""
+    stack through the per-subset updates.  ``t_prev`` and ``is_first`` are
+    read by the 2M and mixed updates only (``None`` where
+    :func:`_reads_history` is false); the fused DDIM update is one kernel
+    launch that gathers its own schedule values."""
     if sage.step_impl not in dispatch.STEP_IMPLS:
         raise ValueError(f"unknown step impl {sage.step_impl!r}; one of "
                          f"{dispatch.STEP_IMPLS}")
@@ -231,14 +235,31 @@ def _step_update(sched: Schedule, sage: SageConfig, z, t, t_next,
             lam_n=lam_n, is_first=is_first, clip_x0=sage.clip_x0,
             impl="fused")
     if _fused_step(sage):
-        a_t, s_t, a_n, s_n = samplers.ddim_scalars(sched, t, t_next)
         z = dispatch.cfg_ddim_step(
-            z, eps_u, eps_c, guidance=sage.guidance_scale, a_t=a_t, s_t=s_t,
-            a_n=a_n, s_n=s_n, clip_x0=sage.clip_x0, impl="fused")
+            z, eps_u, eps_c, guidance=sage.guidance_scale,
+            alphas=sched.alphas, sigmas=sched.sigmas, t=t, t_next=t_next,
+            clip_x0=sage.clip_x0, impl="fused")
         return z, eps_c
     eps = cfg_combine(eps_u, eps_c, sage.guidance_scale)
     return _sampler_update(sched, sage, z, t, t_next, eps, eps_prev, t_prev,
                            is_first), eps
+
+
+def _reads_history(sage: SageConfig, split: Optional[RowSplit]) -> bool:
+    """Whether a segment's updates read ``t_prev`` and the warm-up flag:
+    DPM-Solver++(2M) and mixed stacks do; a DDIM-only segment builds
+    neither."""
+    return split is not None or sage.sampler == "dpmpp"
+
+
+def _history_indices(grid: torch.Tensor, i: torch.Tensor, first,
+                     reads: bool):
+    """``(t_prev, is_first)`` at grid position ``i``, the history restarting
+    where ``i == first``; ``(None, None)`` when the updates do not read
+    them."""
+    if not reads:
+        return None, None
+    return _grid_gather(grid, torch.clamp_min(i - 1, 0)), i == first
 
 
 class SampleCarry(NamedTuple):
@@ -285,12 +306,13 @@ def shared_segment(eps_fn: EpsFn, sched: Schedule, sage: SageConfig,
     and ``split`` from :func:`segment_solver`."""
     z, eps_prev, i = carry
     K = z.shape[0]
+    hist = _reads_history(sage, split)
     for _ in range(n_steps):
         t, t_next = _grid_gather(grid, i), _grid_gather(grid, i + 1)
         eps_u, eps_c = _eps_pair(eps_fn, z, t.expand(K), cbar, null_cond)
         z, eps_prev = _step_update(
             sched, sage, z, t, t_next, eps_u, eps_c, eps_prev,
-            _grid_gather(grid, torch.clamp_min(i - 1, 0)), i == 0, split)
+            *_history_indices(grid, i, 0, hist), split)
         i = i + 1
     return SampleCarry(z, eps_prev, i)
 
@@ -334,6 +356,7 @@ def branch_segment(eps_fn: EpsFn, sched: Schedule, sage: SageConfig,
         gm_impl = "kernel" if _fused_step(sage) else "reference"
         cc = torch.cat([null_cond.expand((K,) + tuple(null_cond.shape))
                         .to(cond_flat.dtype), cond_flat], 0)
+    hist = _reads_history(sage, split)
     for _ in range(n_steps):
         t, t_next = _grid_gather(grid, i), _grid_gather(grid, i + 1)
         if sage.shared_uncond_cfg:
@@ -354,8 +377,7 @@ def branch_segment(eps_fn: EpsFn, sched: Schedule, sage: SageConfig,
                                      null_cond)
         z, eps_prev = _step_update(
             sched, sage, z, t, t_next, eps_u, eps_c, eps_prev,
-            _grid_gather(grid, torch.clamp_min(i - 1, 0)), i == fork_idx,
-            split)
+            *_history_indices(grid, i, fork_idx, hist), split)
         i = i + 1
     return SampleCarry(z, eps_prev, i)
 

@@ -34,10 +34,11 @@ _P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                    ctypes.c_float)
 # (name, argtypes) of every launcher; each returns its cudaGetLastError()
 SIGNATURES = {
-    # z, eps_u, eps_c, out, a_t, s_t, a_n, s_n, guidance, clip_x0, n,
-    # n_per_row, row_stride, dtype, stream
-    "sage_ddim_step": (_P, _P, _P, _P, _P, _P, _P, _P, _F, _F, _LL, _LL,
-                       _I, _I, _P),
+    # z, eps_u, eps_c, out, alphas, sigmas, n_table, t, t_next, t_stride,
+    # t_next_stride, guidance, clip_x0, n, n_per_row, then the launch plan:
+    # threads, vec; dtype, stream
+    "sage_ddim_step": (_P, _P, _P, _P, _P, _P, _LL, _P, _P, _LL, _LL, _F,
+                       _F, _LL, _LL, _I, _I, _I, _P),
     # z, eps_u, eps_c, eps_prev, out, eps_out, a_t, s_t, a_n, s_n, lam,
     # lam_p, lam_n, first (bool), guidance, clip_x0, n, n_per_row,
     # row_stride, first_stride, then the launch plan: threads, vec; dtype,

@@ -63,17 +63,18 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def cfg_ddim_step(z: torch.Tensor, eps_u: torch.Tensor, eps_c: torch.Tensor,
-                  *, guidance, a_t, s_t, a_n, s_n, clip_x0: float = 0.0,
+                  *, guidance, alphas, sigmas, t, t_next,
+                  clip_x0: float = 0.0,
                   impl: str = "reference") -> torch.Tensor:
-    """CFG combine + DDIM update: the fused kernel (one pass: 3 reads, 1
-    write) or the reference math."""
+    """CFG combine + DDIM update at timesteps ``t`` -> ``t_next`` of the
+    schedule's ``alphas`` / ``sigmas`` tables: the fused kernel (one pass:
+    3 reads, 1 write, its own schedule gathers) or the reference math."""
     if impl not in STEP_IMPLS:
         raise ValueError(f"unknown step impl {impl!r}; one of {STEP_IMPLS}")
-    if impl == "fused":
-        return fused_cfg_ddim_step(z, eps_u, eps_c, guidance, a_t, s_t,
-                                   a_n, s_n, clip_x0=clip_x0)
-    return fused_cfg_ddim_step_ref(z, eps_u, eps_c, guidance, a_t, s_t,
-                                   a_n, s_n, clip_x0=clip_x0)
+    step = fused_cfg_ddim_step if impl == "fused" \
+        else fused_cfg_ddim_step_ref
+    return step(z, eps_u, eps_c, guidance, alphas, sigmas, t, t_next,
+                clip_x0=clip_x0)
 
 
 def cfg_dpmpp_step(z: torch.Tensor, eps_u: torch.Tensor,

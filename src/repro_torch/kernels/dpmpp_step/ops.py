@@ -11,72 +11,17 @@ of 1 or 0, and the warm-up flag as the caller's bool tensor at its own
 stride, so that a launch on the serving path converts nothing.
 ``guidance`` and ``clip_x0`` are launch arguments.
 
-The grid comes from :func:`launch_plan`: slices of a row, one 16-byte
+The grid comes from ``_tiles.launch_plan``: slices of a row, one 16-byte
 vector a thread, sized so that the serving path's stacks fill the card.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
-
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._tiles import VECTOR_BYTES, aligned16, step_arrays
+from repro_torch.kernels._tiles import aligned16, launch_plan, step_arrays
 from repro_torch.kernels.ddim_step.ops import DTYPES
 from repro_torch.kernels.dpmpp_step.ref import fused_cfg_dpmpp_step_ref
-
-#: elements of a block's slice, one vector (or element) a thread: the
-#: serving path's stacks of 8 and 2 rows make 512 and 128 blocks, of 2 warps
-#: in f32 (on the card, blocks of 2 warps ran faster than of 4 or 8)
-SLICE = 256
-
-
-class LaunchPlan(NamedTuple):
-    """One launch: ``rows`` rows of ``n_per_row`` elements, each cut into
-    ``blocks_per_row`` slices of ``slice`` elements (the last one of a row
-    may be shorter), one block a slice, ``threads`` threads moving ``vec``
-    elements at once.  The kernel takes ``threads`` and ``vec`` and works
-    out the slices as the properties here do."""
-    n_per_row: int
-    rows: int
-    vec: int
-    threads: int
-
-    @property
-    def slice(self) -> int:
-        return self.threads * self.vec
-
-    @property
-    def blocks_per_row(self) -> int:
-        return -(-self.n_per_row // self.slice)
-
-    @property
-    def blocks(self) -> int:
-        return self.rows * self.blocks_per_row
-
-    def slice_of(self, block: int) -> Tuple[int, int]:
-        """(first element, length) of ``block``'s slice, as the kernel
-        reads it from ``blockIdx.x``."""
-        row, j = divmod(block, self.blocks_per_row)
-        start = j * self.slice
-        return (row * self.n_per_row + start,
-                min(self.slice, self.n_per_row - start))
-
-
-def launch_plan(n: int, n_per_row: int, itemsize: int,
-                aligned: bool) -> LaunchPlan:
-    """The launch of ``n`` elements in rows of ``n_per_row`` (the step
-    scalars' rows; ``n`` for a broadcast launch) of ``itemsize`` bytes.
-    Rows whose length is a multiple of the 16-byte vector, on aligned
-    pointers, take the vector path, the others the one-element path.  A
-    block covers a slice of ``SLICE`` elements, one vector (or element) a
-    thread."""
-    if n_per_row < 1 or n % n_per_row:
-        raise ValueError(f"{n} elements do not make rows of {n_per_row}")
-    full = VECTOR_BYTES // itemsize
-    vec = full if aligned and n_per_row % full == 0 else 1
-    return LaunchPlan(n_per_row=n_per_row, rows=n // n_per_row, vec=vec,
-                      threads=SLICE // vec)
 
 
 def fused_cfg_dpmpp_step(z, eps_u, eps_c, eps_prev, guidance,

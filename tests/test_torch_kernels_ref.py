@@ -7,15 +7,21 @@ with a seed and the same arrays go to both sides.  The CUDA kernels
 themselves are held against these plain versions on the card by
 ``chip_smoke.py``.
 """
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.core import samplers as jax_samplers
+from repro.core.guidance import cfg_combine as jax_cfg_combine
+from repro.core.schedule import make_schedule as jax_make_schedule
 from repro.kernels.ddim_step.ops import fused_cfg_ddim_step as jax_ddim
 from repro.kernels.flash_attention.ops import flash_attention as jax_flash
 from repro.models import layers as jax_layers
+from repro_torch.core.schedule import ddim_timesteps, make_schedule
 from repro_torch.kernels import dispatch
 from repro_torch.kernels._tiles import step_arrays
 from repro_torch.kernels.ddim_step import ops as ddim_ops
@@ -36,47 +42,108 @@ def _rand(rng, shape):
 
 
 # ---------------------------------------------------------------------------
-# ddim_step: both launch shapes (broadcast scalars / per-row scalars)
+# ddim_step: both launch shapes (one timestep / per-row timesteps); the
+# plain version gathers from the schedule's tables as the kernel does
 # ---------------------------------------------------------------------------
+
+def _ddim_inputs(rng, shape, per_row):
+    """Latents, a VP schedule's tables (alpha^2 + sigma^2 = 1) of 1001
+    entries, and timesteps (B,) or 0-dim, all numpy."""
+    z, eu, ec = (_rand(rng, shape) for _ in range(3))
+    alphas = rng.uniform(0.01, 1.0, 1001).astype(np.float32)
+    sigmas = np.sqrt(1 - alphas ** 2).astype(np.float32)
+    B = shape[0]
+    t = rng.integers(1, 1001, B if per_row else ())
+    tn = np.maximum(t - rng.integers(1, 40, B if per_row else ()), 0)
+    return (z, eu, ec), (alphas, sigmas), (t, tn)
+
 
 @pytest.mark.parametrize("per_row", [False, True])
 @pytest.mark.parametrize("clip_x0", [0.0, 3.0])
 @pytest.mark.parametrize("shape", [(2, 8, 8, 4), (3, 17, 5, 3)])
 def test_ddim_ref_matches_jax_kernel(per_row, clip_x0, shape):
+    """The plain version, gathering from the tables itself, against the JAX
+    kernel (interpret mode) handed the same gathers as its scalar block."""
     rng = np.random.default_rng(hash((per_row, clip_x0, shape)) % 2**32)
-    z, eu, ec = (_rand(rng, shape) for _ in range(3))
-    B = shape[0]
-    if per_row:
-        a_t = rng.uniform(0.05, 0.9, B).astype(np.float32)
-        a_n = rng.uniform(0.05, 0.9, B).astype(np.float32)
-    else:
-        a_t = np.float32(0.3)
-        a_n = np.float32(0.6)
-    s_t = np.sqrt(1 - a_t ** 2).astype(np.float32)
-    s_n = np.sqrt(1 - a_n ** 2).astype(np.float32)
+    (z, eu, ec), (alphas, sigmas), (t, tn) = _ddim_inputs(rng, shape,
+                                                          per_row)
     want = jax_ddim(jnp.asarray(z), jnp.asarray(eu), jnp.asarray(ec), 7.5,
-                    jnp.asarray(a_t), jnp.asarray(s_t), jnp.asarray(a_n),
-                    jnp.asarray(s_n), clip_x0=clip_x0)
-    t = torch.from_numpy
-    args = (t(z), t(eu), t(ec), 7.5, torch.as_tensor(a_t),
-            torch.as_tensor(s_t), torch.as_tensor(a_n), torch.as_tensor(s_n))
+                    jnp.asarray(alphas[t]), jnp.asarray(sigmas[t]),
+                    jnp.asarray(alphas[tn]), jnp.asarray(sigmas[tn]),
+                    clip_x0=clip_x0)
+    f = torch.from_numpy
+    args = (f(z), f(eu), f(ec), 7.5, f(alphas), f(sigmas),
+            torch.as_tensor(t), torch.as_tensor(tn))
     got = fused_cfg_ddim_step_ref(*args, clip_x0=clip_x0)
     np.testing.assert_allclose(got.numpy(), np.asarray(want),
                                rtol=DDIM_TOL, atol=DDIM_TOL)
     # the wrapper on a CPU tensor is exactly the plain version, no launch
     before = ddim_ops.fused_cfg_ddim_step.launches
     routed = dispatch.cfg_ddim_step(
-        *args[:3], guidance=7.5, a_t=args[4], s_t=args[5], a_n=args[6],
-        s_n=args[7], clip_x0=clip_x0, impl="fused")
+        *args[:3], guidance=7.5, alphas=args[4], sigmas=args[5], t=args[6],
+        t_next=args[7], clip_x0=clip_x0, impl="fused")
     assert torch.equal(routed, got)
     assert ddim_ops.fused_cfg_ddim_step.launches == before
 
 
+@pytest.mark.parametrize("per_row", [False, True])
+@pytest.mark.parametrize("clip_x0", [0.0, 3.0])
+def test_ddim_ref_matches_jax_sampler(per_row, clip_x0):
+    """The plain version's new argument form against the JAX package's own
+    DDIM reference on its cosine schedule: ``schedule.alpha`` /
+    ``sigma`` gathers at the same timesteps, then ``cfg_combine`` and
+    ``samplers.ddim_step`` (the JAX package's route without the kernel)."""
+    rng = np.random.default_rng(41 + 2 * per_row + int(clip_x0))
+    shape = (4, 8, 8, 4)
+    z, eu, ec = (_rand(rng, shape) for _ in range(3))
+    grid = ddim_timesteps(1000, 30)
+    idx = rng.integers(0, 30, shape[0] if per_row else ())
+    t, tn = grid[idx], grid[idx + 1]
+    jsched = jax_make_schedule(1000)
+    eps = jax_cfg_combine(jnp.asarray(eu), jnp.asarray(ec), 7.5)
+    want = jax_samplers.ddim_step(jsched, jnp.asarray(z), jnp.asarray(t),
+                                  jnp.asarray(tn), eps, clip_x0=clip_x0)
+    sched = make_schedule(1000)
+    f = torch.from_numpy
+    got = fused_cfg_ddim_step_ref(f(z), f(eu), f(ec), 7.5, sched.alphas,
+                                  sched.sigmas, torch.as_tensor(t),
+                                  torch.as_tensor(tn), clip_x0=clip_x0)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               rtol=DDIM_TOL, atol=DDIM_TOL)
+
+
 def test_ddim_wrapper_rejects_mismatched_shapes():
     z = torch.zeros(2, 4, 4, 4)
+    tab = torch.ones(11)
     with pytest.raises(ValueError, match="shape mismatch"):
         ddim_ops.fused_cfg_ddim_step(z, z, torch.zeros(2, 4, 4, 3), 1.0,
-                                     0.5, 0.5, 0.5, 0.5)
+                                     tab, tab, 5, 4)
+    with pytest.raises(ValueError, match=r"t_next must be 0-dim or \(2,\)"):
+        ddim_ops.fused_cfg_ddim_step(z, z, z, 1.0, tab, tab, 5,
+                                     torch.tensor([4, 3, 2]))
+    with pytest.raises(TypeError, match="integer timesteps"):
+        ddim_ops.fused_cfg_ddim_step(z, z, z, 1.0, tab, tab,
+                                     torch.tensor(5.0), 4)
+    with pytest.raises(ValueError, match="schedule tables"):
+        ddim_ops.fused_cfg_ddim_step(z, z, z, 1.0, tab, torch.ones(12), 5, 4)
+
+
+def test_ddim_timestep_forms_agree():
+    """A python int, a 0-dim tensor and a per-row tensor of equal
+    timesteps give the same update; per-row timesteps give each row its
+    own."""
+    g = torch.Generator().manual_seed(3)
+    z, eu, ec = (torch.randn((3, 4, 4, 4), generator=g) for _ in range(3))
+    sched = make_schedule(1000)
+    step = functools.partial(ddim_ops.fused_cfg_ddim_step, z, eu, ec, 2.0,
+                             sched.alphas, sched.sigmas, clip_x0=3.0)
+    one = step(700, 650)
+    assert torch.equal(step(torch.tensor(700), torch.tensor(650)), one)
+    assert torch.equal(step(torch.full((3,), 700), torch.tensor(650)), one)
+    rows = step(torch.tensor([700, 500, 300]), torch.tensor([650, 450, 250]))
+    assert torch.equal(rows[0], one[0])
+    assert torch.equal(rows[2:], step(300, 250)[2:])
+    assert not torch.equal(rows[1], one[1])
 
 
 def test_ddim_schedule_arrays():

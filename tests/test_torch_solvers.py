@@ -31,8 +31,9 @@ from repro_torch import weights
 from repro_torch.config import SageConfig, replace
 from repro_torch.core import samplers
 from repro_torch.core import shared_sampling as ss
-from repro_torch.core.schedule import ddim_timesteps, make_schedule
+from repro_torch.core.schedule import Schedule, ddim_timesteps, make_schedule
 from repro_torch.kernels import dispatch
+from repro_torch.kernels._tiles import bcast_rows
 from repro_torch.kernels.dpmpp_step import ops as dpmpp_ops
 from repro_torch.kernels.dpmpp_step.ref import fused_cfg_dpmpp_step_ref
 from repro_torch.kernels.group_mean import ops as gmean_ops
@@ -525,3 +526,106 @@ def test_uniform_row_samplers_take_the_scalar_path():
     assert rs is None and s2 == dc_replace(sage, sampler="dpmpp")
     with pytest.raises(ValueError, match="row samplers"):
         ss._row_split(("ddim", "dpmpp"), 3, "cpu")
+
+
+# ---------------------------------------------------------------------------
+# the fused DDIM update gathers its own schedule values: a DDIM-only
+# segment through it equals the same segment fed pre-gathered scalars
+# ---------------------------------------------------------------------------
+
+def _pregathered_ddim(z, eps_u, eps_c, *, guidance, alphas, sigmas, t,
+                      t_next, clip_x0, impl):
+    """The fused DDIM update as the port made it before its kernel gathered
+    its own values: ``samplers.ddim_scalars`` on the schedule, then the
+    plain update from those four scalars, op for op."""
+    assert impl == "fused"
+    sched = Schedule(alphas, sigmas, alphas.numel() - 1)
+    a_t, s_t, a_n, s_n = (bcast_rows(v, z.ndim) for v in
+                          samplers.ddim_scalars(sched, t, t_next))
+    eps = (eps_u + guidance * (eps_c - eps_u)).float()
+    z0 = (z.float() - s_t * eps) / torch.clamp_min(a_t, 1e-6)
+    if clip_x0:
+        z0 = torch.clamp(z0, -clip_x0, clip_x0)
+    return (a_n * z0 + s_n * eps).to(z.dtype)
+
+
+def _ddim_segment_inputs(kind):
+    """(step_idx, grid, fork_idx) of a K = 2, N = 3 stack: one grid position
+    for every row (0-dim), per-row positions on the 1-D grid, or per-row
+    positions on a 2-D grid of two step budgets."""
+    K, N = 2, 3
+    if kind == "scalar":
+        return (torch.tensor(1), torch.as_tensor(ddim_timesteps(1000, 8)),
+                torch.tensor(3), K, N)
+    if kind == "per_row":
+        return (torch.tensor([1, 2]), torch.as_tensor(ddim_timesteps(1000, 8)),
+                torch.tensor([3] * N + [4] * N), K, N)
+    grid = packing.pack_grid([_G(8, "ddim"), _G(6, "ddim")], 1000)
+    return torch.tensor([1, 0]), grid, torch.tensor([3] * N + [2] * N), K, N
+
+
+@pytest.mark.parametrize("kind", ["scalar", "per_row", "grid2d"])
+def test_ddim_segments_gathering_kernel_equals_pregathered(kind,
+                                                           monkeypatch):
+    """shared_segment and branch_segment on the fused DDIM route, through
+    the wrapper that gathers alphas[t] etc. itself, equal bitwise the same
+    segments fed pre-gathered scalars (the gathers are exact)."""
+    step, grid, fork, K, N = _ddim_segment_inputs(kind)
+    sage = SageConfig(total_steps=8, guidance_scale=3.0, step_impl="fused",
+                      clip_x0=3.0)
+    g = torch.Generator().manual_seed(43)
+    H, Lc, dc = 4, 3, 2
+    cbar = torch.randn((K, Lc, dc), generator=g)
+    cond = torch.randn((K * N, Lc, dc), generator=g)
+    null = torch.zeros((Lc, dc))
+    mask = torch.ones((K, N))
+    start = ss.init_carry(torch.randn((K, H, H, 4), generator=g))
+    start = start._replace(step_idx=step)
+    bgrid = grid.repeat_interleave(N, 0) if grid.ndim == 2 else grid
+
+    def run():
+        trunk = ss.shared_segment(_toy_eps_torch, SCHED_T, sage, start, cbar,
+                                  null, 2, grid)
+        c = ss.fork_carry(trunk, N)._replace(step_idx=fork)
+        return trunk, ss.branch_segment(_toy_eps_torch, SCHED_T, sage, c,
+                                        cond, mask, null, 2, fork, bgrid)
+
+    got = run()
+    monkeypatch.setattr(dispatch, "cfg_ddim_step", _pregathered_ddim)
+    want = run()
+    for a, b in zip(got, want):
+        assert torch.equal(a.z, b.z) and torch.equal(a.eps_prev, b.eps_prev)
+        assert torch.equal(a.step_idx, b.step_idx)
+    assert torch.isfinite(got[1].z).all()
+
+
+@pytest.mark.parametrize("sampler, rows, per_step", [
+    ("ddim", None, 2), ("dpmpp", None, 3), ("ddim", ("ddim", "dpmpp"), 3)])
+def test_ddim_segment_builds_no_history_indices(sampler, rows, per_step,
+                                                monkeypatch):
+    """A DDIM-only segment gathers t and t_next a step and hands the update
+    no t_prev or warm-up flag; DPM-Solver++ and mixed stacks still gather
+    t_prev and build the flag."""
+    sage = SageConfig(total_steps=8, sampler=sampler, step_impl="fused")
+    sage, split = ss.segment_solver(sage, rows, 2, "cpu")
+    gathers, history = [], []
+    grid_gather, step_update = ss._grid_gather, ss._step_update
+
+    def count_gather(*args):
+        gathers.append(1)
+        return grid_gather(*args)
+
+    def spy_update(*args):
+        history.append(args[8:10])
+        return step_update(*args)
+    monkeypatch.setattr(ss, "_grid_gather", count_gather)
+    monkeypatch.setattr(ss, "_step_update", spy_update)
+    g = torch.Generator().manual_seed(47)
+    carry = ss.init_carry(torch.randn((2, 4, 4, 4), generator=g))
+    ss.shared_segment(_toy_eps_torch, SCHED_T, sage, carry,
+                      torch.randn((2, 3, 2), generator=g), torch.zeros((3, 2)),
+                      3, torch.as_tensor(ddim_timesteps(1000, 8)), split)
+    assert len(gathers) == 3 * per_step
+    reads = sampler == "dpmpp" or rows is not None
+    assert all((h[0] is not None and h[1] is not None) == reads
+               for h in history) and len(history) == 3

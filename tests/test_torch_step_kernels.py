@@ -1,7 +1,7 @@
-"""The ``dpmpp_step`` and ``group_mean`` kernels against their plain
-versions on the card, at the serving path's shapes and on the one-element
-path (ragged rows, and pointers one element off 16 bytes), within
-``chip_smoke.py``'s tolerances.
+"""The ``ddim_step``, ``dpmpp_step`` and ``group_mean`` kernels against
+their plain versions on the card, at the serving path's shapes and on the
+one-element path (ragged rows, and pointers one element off 16 bytes),
+within ``chip_smoke.py``'s tolerances.
 
 Every test here is marked ``cuda`` and skips itself without a card (a CUDA
 kernel has no CPU mode; the CPU tests of the plans are
@@ -20,6 +20,8 @@ import torch
 
 from repro_torch.core import samplers
 from repro_torch.core.schedule import ddim_timesteps, make_schedule
+from repro_torch.kernels.ddim_step import ops as ddim_ops
+from repro_torch.kernels.ddim_step.ref import fused_cfg_ddim_step_ref
 from repro_torch.kernels.dpmpp_step import ops as dpmpp_ops
 from repro_torch.kernels.dpmpp_step.ref import fused_cfg_dpmpp_step_ref
 from repro_torch.kernels.group_mean import ops as gmean_ops
@@ -57,6 +59,91 @@ def _assert_close(kernel, got, want):
     tol = TOL[(kernel, str(want.dtype).split(".")[1])]
     diff = (got.float() - want.float()).abs()
     assert (diff <= tol * (1 + want.float().abs())).all(), diff.max().item()
+
+
+# (shape, offset, timesteps): the branch stack (2 groups x 4 members of
+# sage-dit's 64x64x4 latent) and the shared phase's 2 trunks with per-row
+# timesteps, the broadcast launch (0-dim), a row of 16386 elements (not a
+# multiple of the vector), the branch stack one element off 16 bytes, t
+# expanded from one value (a row stride of 0) beside a per-row t_next,
+# per-row timesteps gathered from a 2-D grid of two step budgets, and more
+# rows than one launch's grid takes (two launches)
+DDIM_CASES = {"branch8": ((8, 64, 64, 4), 0, "rows"),
+              "shared2": ((2, 64, 64, 4), 0, "rows"),
+              "broadcast8": ((8, 64, 64, 4), 0, "one"),
+              "ragged16386": ((2, 16386), 0, "rows"),
+              "offset1": ((8, 64, 64, 4), 1, "rows"),
+              "expanded": ((8, 64, 64, 4), 0, "expanded"),
+              "grid2d": ((8, 64, 64, 4), 0, "grid2d"),
+              "rows65538": ((65538, 8), 0, "rows")}
+
+
+def _ddim_timesteps(kind, rows, dev):
+    """(t, t_next) on the real 30-step grid: two groups at steps 9 and 12
+    (one per half of the rows), one step for all, or a 2-D grid of 30- and
+    20-step budgets."""
+    grid = torch.as_tensor(ddim_timesteps(1000, 30), device=dev)
+    idx = torch.tensor([9, 12], device=dev).repeat_interleave(rows // 2)
+    if kind == "one":
+        return grid[idx[-1]], grid[idx[-1] + 1]
+    if kind == "expanded":
+        return grid[idx[-1]].expand(rows), grid[idx + 1]
+    if kind == "grid2d":
+        g2 = torch.zeros((rows, 31), dtype=torch.long, device=dev)
+        g2[: rows // 2] = grid
+        g2[rows // 2:, :21] = torch.as_tensor(ddim_timesteps(1000, 20),
+                                              device=dev)
+        i = idx[:, None]
+        return g2.gather(1, i)[:, 0], g2.gather(1, i + 1)[:, 0]
+    return grid[idx], grid[idx + 1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", list(DDIM_CASES))
+def test_ddim_step_kernel(case, dtype):
+    """The kernel, gathering its own schedule values, against the plain
+    version on the same tables and timesteps: in f32 op for op, so
+    bitwise; clip on and off."""
+    dev = _device()
+    shape, offset, kind = DDIM_CASES[case]
+    gen = torch.Generator(device=dev).manual_seed(9)
+    z, eu, ec = (_randn(shape, dtype, dev, gen, offset) for _ in range(3))
+    sched = make_schedule(1000, device=dev)
+    t, tn = _ddim_timesteps(kind, shape[0], dev)
+    for clip in (3.0, 0.0):
+        args = (z, eu, ec, 7.5, sched.alphas, sched.sigmas, t, tn)
+        before = ddim_ops.fused_cfg_ddim_step.launches
+        got = ddim_ops.fused_cfg_ddim_step(*args, clip_x0=clip)
+        torch.cuda.synchronize()
+        per_row = kind != "one"
+        assert ddim_ops.fused_cfg_ddim_step.launches == before + (
+            -(-shape[0] // ddim_ops.MAX_ROWS) if per_row else 1)
+        want = fused_cfg_ddim_step_ref(*args, clip_x0=clip)
+        assert got.dtype == dtype and got.shape == want.shape
+        _assert_close("ddim_step", got, want)
+        if dtype == torch.float32:
+            assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_ddim_step_kernel_indexes_as_pytorch():
+    """A negative timestep counts from the end of the table, as PyTorch's
+    indexing does; one past the table gives NaN rows (PyTorch raises)."""
+    dev = _device()
+    gen = torch.Generator(device=dev).manual_seed(10)
+    z, eu, ec = (_randn((4, 8, 8, 4), torch.float32, dev, gen, 0)
+                 for _ in range(3))
+    sched = make_schedule(1000, device=dev)
+    t = torch.tensor([-1, -1001, 500, 1001], device=dev)
+    tn = torch.tensor([900, 10, 1001, 400], device=dev)
+    got = ddim_ops.fused_cfg_ddim_step(z, eu, ec, 2.0, sched.alphas,
+                                       sched.sigmas, t, tn, clip_x0=3.0)
+    want = fused_cfg_ddim_step_ref(z[:2], eu[:2], ec[:2], 2.0, sched.alphas,
+                                   sched.sigmas, t[:2], tn[:2], clip_x0=3.0)
+    assert torch.equal(got[:2], want)
+    assert torch.isnan(got[2:]).all()
 
 
 # (shape, offset, per_row): the branch stack (2 groups x 4 members of
