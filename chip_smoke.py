@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--parent DIR]
 
-Run from the root of a checkout.  Six phases; any failure exits non-zero
+Run from the root of a checkout.  Seven phases; any failure exits non-zero
 without the result line:
 
 1. build — compile the CUDA kernels under ``src/repro_torch/csrc`` with
@@ -64,7 +64,24 @@ without the result line:
    against f32 must stay within 1.25x the plain bf16 route's; and the
    kernel forward with the weights cast once against the same forward
    casting each weight per call, bitwise;
-4. end to end, ``mamba2`` — the AR shared-prefix path at the full
+4. stream — the streaming scheduler (``SageServingEngine.
+   streaming_scheduler``: submit / tick / drain on a virtual clock) on the
+   same full-width modules and routes, over ``STREAM_TRACES``: trace H
+   (four classes of latent shape, quality tier and solver, all arriving at
+   once, mixed-solver packs) twice on one scheduler, the first pass
+   capturing its graphs and the second only replaying them, a third pass
+   under ``torch.profiler``, then with ``packed=False`` on a fresh
+   scheduler; trace O (QoS classes with deadlines under a 2-group cap with
+   preemption, shed admission, the pad-aware launch policy and a seeded
+   fault plan) once.  Each pass's discrete outcome (``stream_outcome``:
+   ticks, launch / NFE / overload ledgers, groups, statuses, tier and shape
+   ledgers) must equal ``STREAM_EXPECTED``, the JAX scheduler's at smoke
+   size, the per-group run's but for its launches; each trace must launch
+   exactly its path's kernels (``PATH_KERNELS``), every image be finite and
+   of its class's shape.  Walls, ticks, launches per tick, pad waste, NFE,
+   latencies, the graphs captured by runner key, capture seconds and
+   memory are printed;
+5. end to end, ``mamba2`` — the AR shared-prefix path at the full
    ``mamba2-780m`` width (48 SSD layers, d_model 1536, 48 heads of 64,
    d_state 128, vocab 50280, bf16 activations): the launcher
    (``repro_torch.launch.serve``) at batch 4, 1024-token prompts, 32
@@ -83,10 +100,11 @@ without the result line:
    within 1e-3 of their magnitude in f32.  One trunk
    prefill and the replayed decode loop are then traced, each trace held
    to the counts;
-5. reference — each path at smoke size on the card against the plain CPU
+6. reference — each path at smoke size on the card against the plain CPU
    path: equal groups, NFE, launches and token-step counts, images and
-   logits within tolerance;
-6. graph nodes — the kernel nodes of each DiT path's segment graphs
+   logits within tolerance; the two stream traces the same way (equal
+   outcomes and records, images within 1e-3);
+7. graph nodes — the kernel nodes of each DiT path's segment graphs
    (``[graph-nodes:<path>]``), and the device time of one segment step
    without the DiT (the solver's part of a step).  With ``--parent DIR``,
    a checkout of the parent commit (``git archive``), a child process
@@ -158,6 +176,207 @@ THEMES = (
      "a green tree in a wide field at dawn",
      "a tall green tree in a grassy field at dawn"],
 )
+
+
+# -- the stream phase's arrival traces --------------------------------------
+#
+# Both run on a virtual clock (now += 1.0 a tick) through the streaming
+# scheduler (``SageServingEngine.streaming_scheduler``), standard tier 30
+# steps, tiers as the scheduler's defaults (draft 15, premium 45).  Prompts
+# are identical within a class and the classes are kept apart by their
+# compartment (shape, tier, sampler, qos), and deadlines are in ticks: so
+# groups, ticks, launches and statuses do not depend on the weights or on
+# the model's size, and ``STREAM_EXPECTED`` (the JAX scheduler's outcome at
+# smoke size) holds at full width too.  Shapes are fractions of the
+# trained latent grid (64 at sage-dit: 32x32 -> 256 tokens, 64x64 -> 1024,
+# 32x64 -> 512).
+STREAM_PROMPTS = ("a red circle on a white background",
+                  "a tall green tree in a field at dawn",
+                  "a blue square over a calm grey sea",
+                  "a yellow house under a starry night sky")
+STREAM_TRACES = {
+    # "hetero": benchmarks/serving_bench.py's mix4t4s2hT6 (BENCH_7) and one
+    # more class, all arriving at t = 0 with mixed-sampler packs:
+    # (class, requests, prompt, (H, W) as fractions of the grid, tier,
+    # sampler)
+    "H": dict(
+        sage=dict(total_steps=30),
+        scheduler=dict(slice_steps=4, max_wait_ticks=0, policy="eager",
+                       mix_samplers=True),
+        classes=(("thumb", 4, 0, (1, 2), (1, 2), "draft", "ddim"),
+                 ("set", 4, 1, (1, 1), (1, 1), "standard", "ddim"),
+                 ("hires", 2, 2, (1, 1), (1, 1), "standard", "dpmpp"),
+                 ("wide", 2, 3, (1, 2), (1, 1), "premium", "dpmpp"))),
+    # "overload": one prompt, DPM-Solver++ with the shared-uncond CFG; each
+    # of the first `ticks` ticks brings `batch` batch requests (deadline now
+    # + `batch_deadline`) and every `every`-th tick `interactive`
+    # interactive ones (now + `interactive_deadline`), under a 2-group cap,
+    # shed admission, the pad-aware policy and seeded faults; then drain
+    "O": dict(
+        sage=dict(total_steps=30, sampler="dpmpp", shared_uncond_cfg=True),
+        scheduler=dict(slice_steps=4, max_groups_per_tick=2,
+                       starvation_ticks=8, admission="shed",
+                       policy="pad_aware"),
+        faults=dict(seed=7, p_launch_fail=0.1, p_tick_stall=0.05,
+                    max_faults=6),
+        arrivals=dict(ticks=16, batch=3, batch_deadline=24.0,
+                      interactive=2, every=4, interactive_deadline=12.0)),
+}
+
+
+# the JAX scheduler's discrete outcome of each trace (``stream_outcome``),
+# served at smoke size on the CPU (tests/test_torch_streaming.py and
+# tests/test_torch_policies.py hold it to the JAX scheduler, and the port
+# to it); the stream phase holds the card's full-width run to it exactly
+STREAM_EXPECTED = {'H': {'ticks': 12,
+                         'launches': 26.0,
+                         'pack_rows': 104.0,
+                         'pack_pad_rows': 28.0,
+                         'nfe': 530.0,
+                         'nfe_independent': 660.0,
+                         'requests': 12.0,
+                         'completed': 12.0,
+                         'shed': 0.0,
+                         'shed_faulted': 0.0,
+                         'rejected_expired': 0.0,
+                         'degraded': 0.0,
+                         'preemptions': 0.0,
+                         'resumes': 0.0,
+                         'retries': 0.0,
+                         'launch_faults': 0.0,
+                         'stalled_ticks': 0.0,
+                         'deadline_met': 12.0,
+                         'deadline_missed': 0.0,
+                         'nfe_wasted': 0.0,
+                         'groups': [(0, 0, 'interactive', 'draft', 'ok', 4),
+                                    (1, 1, 'interactive', 'standard', 'ok', 4),
+                                    (2, 2, 'interactive', 'standard', 'ok', 2),
+                                    (3, 3, 'interactive', 'premium', 'ok', 2)],
+                         'by_status': {'ok': 12},
+                         'by_qos': {'interactive/ok': 12},
+                         'tiers': {'draft': {'completed': 4.0, 'nfe': 90.0, 'requests': 4.0},
+                                   'premium': {'completed': 2.0,
+                                               'nfe': 152.0,
+                                               'requests': 2.0},
+                                   'standard': {'completed': 6.0,
+                                                'nfe': 288.0,
+                                                'requests': 6.0}},
+                         'shapes': {'0.5x0.5': {'launches': 5.0,
+                                                'pad_rows': 0.0,
+                                                'rows': 14.0},
+                                    '0.5x1': {'launches': 12.0,
+                                              'pad_rows': 16.0,
+                                              'rows': 36.0},
+                                    '1x1': {'launches': 9.0,
+                                            'pad_rows': 12.0,
+                                            'rows': 54.0}}},
+                   'O': {'ticks': 32,
+                         'launches': 37.0,
+                         'pack_rows': 135.0,
+                         'pack_pad_rows': 54.0,
+                         'nfe': 426.0,
+                         'nfe_independent': 660.0,
+                         'requests': 56.0,
+                         'completed': 11.0,
+                         'shed': 45.0,
+                         'shed_faulted': 0.0,
+                         'rejected_expired': 0.0,
+                         'degraded': 0.0,
+                         'preemptions': 2.0,
+                         'resumes': 2.0,
+                         'retries': 6.0,
+                         'launch_faults': 5.0,
+                         'stalled_ticks': 1.0,
+                         'deadline_met': 2.0,
+                         'deadline_missed': 9.0,
+                         'nfe_wasted': 0.0,
+                         'groups': [(-1, 0, 'batch', 'standard', 'shed', 45),
+                                    (0, 0, 'batch', 'standard', 'ok', 3),
+                                    (1, 0, 'interactive', 'standard', 'ok', 2),
+                                    (2, 0, 'interactive', 'standard', 'ok', 2),
+                                    (3, 0, 'interactive', 'standard', 'ok', 2),
+                                    (4, 0, 'interactive', 'standard', 'ok', 2)],
+                         'by_status': {'ok': 11, 'shed': 45},
+                         'by_qos': {'batch/ok': 3, 'batch/shed': 45, 'interactive/ok': 8},
+                         'tiers': {'standard': {'completed': 11.0,
+                                                'nfe': 426.0,
+                                                'requests': 56.0}},
+                         'shapes': {'1x1': {'launches': 37.0,
+                                            'pad_rows': 54.0,
+                                            'rows': 135.0}}}}
+
+
+def stream_shape(frac_h, frac_w, latent_size, channels):
+    """A class's latent (H, W, C) at a config's grid."""
+    return (latent_size * frac_h[0] // frac_h[1],
+            latent_size * frac_w[0] // frac_w[1], channels)
+
+
+def drive_stream(sched, trace, latent_size, channels, now=0.0):
+    """Serve ``STREAM_TRACES[trace]`` through a streaming scheduler (the
+    port's or the JAX package's: only ``submit``, ``tick`` and ``pending``
+    are used) until it drains.  Returns (completion records, the clock)."""
+    spec = STREAM_TRACES[trace]
+    done = []
+    if "classes" in spec:
+        for _, n, p, fh, fw, tier, sampler in spec["classes"]:
+            sched.submit([STREAM_PROMPTS[p]] * n, now=now,
+                         shape=stream_shape(fh, fw, latent_size, channels),
+                         tier=tier, sampler=sampler)
+    else:
+        a = spec["arrivals"]
+        for k in range(a["ticks"]):
+            now += 1.0
+            sched.submit([STREAM_PROMPTS[0]] * a["batch"], now=now,
+                         deadline=now + a["batch_deadline"], qos="batch")
+            if k % a["every"] == 0:
+                sched.submit([STREAM_PROMPTS[0]] * a["interactive"],
+                             now=now, deadline=now + a["interactive_deadline"],
+                             qos="interactive")
+            done.extend(sched.tick(now=now))
+    while sched.pending:
+        now += 1.0
+        done.extend(sched.tick(now=now))
+    return done, now
+
+
+def stream_outcome(sched, done, latent_size, ticks0=0, stats0=None):
+    """The discrete outcome of a served trace: ticks, the launch and NFE
+    ledgers, the overload counters, the groups (gid, prompt, qos, tier,
+    status, members) and the counts by status and by qos, and the tier and
+    shape ledgers (shapes as fractions of the grid, so the outcome does not
+    depend on the model's size).  ``ticks0`` / ``stats0`` subtract an
+    earlier pass on the same scheduler (its groups then count from that
+    pass's first gid on)."""
+    stats0 = stats0 or {}
+    keys = ("launches", "pack_rows", "pack_pad_rows", "nfe",
+            "nfe_independent", "requests", "completed", "shed",
+            "shed_faulted", "rejected_expired", "degraded", "preemptions",
+            "resumes", "retries", "launch_faults", "stalled_ticks",
+            "deadline_met", "deadline_missed", "nfe_wasted")
+    out = {"ticks": sched.ticks - ticks0}
+    out.update({k: float(sched.stats[k] - stats0.get(k, 0)) for k in keys})
+    gid0 = min((c.group_id for c in done if c.group_id >= 0), default=0)
+    groups, status, qos = {}, {}, {}
+    for c in done:
+        key = (c.group_id - gid0 if c.group_id >= 0 else -1,
+               STREAM_PROMPTS.index(c.prompt), c.qos, c.tier, c.status)
+        groups[key] = groups.get(key, 0) + 1
+        status[c.status] = status.get(c.status, 0) + 1
+        qos[f"{c.qos}/{c.status}"] = qos.get(f"{c.qos}/{c.status}", 0) + 1
+    out["groups"] = sorted(k + (n,) for k, n in groups.items())
+    out["by_status"] = dict(sorted(status.items()))
+    out["by_qos"] = dict(sorted(qos.items()))
+    if not stats0:
+        out["tiers"] = {t: {k: float(v) for k, v in sorted(d.items())}
+                        for t, d in sorted(sched.tier_stats.items())}
+        shapes = {}
+        for s, d in sorted(sched.shape_stats.items()):
+            h, w, _ = (int(x) for x in s.split("x"))
+            shapes[f"{h / latent_size:g}x{w / latent_size:g}"] = {
+                k: float(v) for k, v in sorted(d.items())}
+        out["shapes"] = shapes
+    return out
 
 
 def log(msg: str) -> None:
@@ -512,6 +731,89 @@ def _step_cases(dev, gen, dtype, cases):
             grid[i], grid[i + 1], grid[torch.clamp_min(i - 1, 0)], i == 9
 
 
+def _stream_step_cases(failures, dev, gen, sched):
+    """The step kernels on the stacks that only the stream phase gives them,
+    each against its plain version (f32 DDIM bitwise, the rest at TOL):
+    ddim_step on trace H's draft thumb stack (4 rows of 32x32x4) and on the
+    4-row DDIM subset the mixed-solver split cuts from an (8, 64, 64, 4)
+    pack, its rows at positions of the standard and premium grids (a 2-D
+    tier grid); dpmpp_step on the premium wide stack (4 rows of 32x64x4,
+    two of them member-0 pad replicas) and on the pack's DPM subset, warm-up
+    rows at their fork beside mid-branch rows; group_mean on trace O's one
+    group (1, 4, 64, 64, 4) under its pad masks."""
+    import torch
+    from repro_torch.core import samplers
+    from repro_torch.core.schedule import ddim_timesteps
+    from repro_torch.kernels.ddim_step.ops import fused_cfg_ddim_step
+    from repro_torch.kernels.ddim_step.ref import fused_cfg_ddim_step_ref
+    from repro_torch.kernels.dpmpp_step.ops import fused_cfg_dpmpp_step
+    from repro_torch.kernels.dpmpp_step.ref import fused_cfg_dpmpp_step_ref
+    from repro_torch.kernels.group_mean.ops import masked_group_mean
+    from repro_torch.kernels.group_mean.ref import masked_group_mean_ref
+
+    def grid(steps, idx):
+        g = torch.as_tensor(ddim_timesteps(1000, steps), device=dev)
+        i = torch.tensor(idx, device=dev)
+        return g[i], g[i + 1], g[torch.clamp_min(i - 1, 0)]
+
+    def subset(t):                 # the split's DDIM or DPM rows of a pack
+        return t[torch.tensor([0, 2, 5, 7], device=dev)]
+
+    def padded(t):                 # 2 members + 2 member-0 replicas
+        return torch.cat([t[:2], t[:1].expand((2,) + t.shape[1:])], 0)
+
+    # (case, shape, make the 4 inputs of a stack, (t, t_next, t_prev),
+    #  first flags)
+    ddim = [("thumb draft", (4, 32, 32, 4), lambda x: x,
+             grid(15, [3, 3, 7, 7])),
+            ("mixed-pack subset std/prem", (8, 64, 64, 4), subset,
+             tuple(torch.cat([a, b]) for a, b in zip(
+                 grid(30, [9, 12]), grid(45, [13, 40]))))]
+    dpm = [("wide prem padded", (4, 32, 64, 4), padded,
+            grid(45, [0, 17, 0, 0]), [True, False, True, True]),
+           ("mixed-pack subset std", (8, 64, 64, 4), subset,
+            grid(30, [9, 9, 14, 22]), [True, True, False, False])]
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[1]
+        for case, shape, cut, (t, tn, _) in ddim:
+            z, eu, ec = (cut(torch.randn(shape, device=dev, generator=gen,
+                                         dtype=dtype)) for _ in range(3))
+            for clip in (3.0, 0.0):
+                args = (z, eu, ec, 7.5, sched.alphas, sched.sigmas, t, tn)
+                err = _check(failures, "ddim_step",
+                             f"stream {case} {tuple(z.shape)} clip={clip:g}",
+                             dn, fused_cfg_ddim_step(*args, clip_x0=clip),
+                             fused_cfg_ddim_step_ref(*args, clip_x0=clip),
+                             "")
+                if dtype == torch.float32 and err != 0.0:
+                    failures.append(f"ddim_step stream {case} f32: error "
+                                    f"{err:.3e}, not bitwise the plain "
+                                    f"version's")
+        for case, shape, cut, (t, tn, tp), first in dpm:
+            z, eu, ec, ep = (cut(torch.randn(shape, device=dev,
+                                             generator=gen, dtype=dtype))
+                             for _ in range(4))
+            sc = samplers.dpmpp_scalars(sched, t, tn, tp)
+            first = torch.tensor(first, device=dev)
+            for clip in (3.0, 0.0):
+                args = (z, eu, ec, ep, 7.5, *sc, first)
+                for out, g, w in zip(
+                        ("z'", "eps"),
+                        fused_cfg_dpmpp_step(*args, clip_x0=clip),
+                        fused_cfg_dpmpp_step_ref(*args, clip_x0=clip)):
+                    _check(failures, "dpmpp_step", f"stream {case} "
+                           f"{tuple(z.shape)} clip={clip:g} {out}", dn, g,
+                           w, "")
+        x = torch.randn((1, 4, 64, 64, 4), device=dev, generator=gen,
+                        dtype=dtype)
+        for mvals in ([[1, 1, 1, 0]], [[1, 1, 0, 0]]):
+            mask = torch.tensor(mvals, dtype=torch.float32, device=dev)
+            _check(failures, "group_mean",
+                   f"stream one group {tuple(x.shape)} mask={mvals[0]}", dn,
+                   masked_group_mean(x, mask),
+                   masked_group_mean_ref(x, mask), "")
+
+
 def phase_kernels(failures):
     """Each kernel against its plain version at the main path's shapes.
     Returns the headline row per kernel for the result JSON."""
@@ -644,6 +946,7 @@ def phase_kernels(failures):
                     failures, "group_mean", f"{case} f32", ms, bound,
                     lambda: masked_group_mean(x, mask), nbytes))
 
+    _stream_step_cases(failures, dev, gen, sched)
     _flash_cases(failures, rows, dev, gen, FLASH_CASES)
     _flash_scale_signs(failures, dev, gen)
     _ssd_cases(failures, rows, dev, gen)
@@ -677,6 +980,36 @@ FLASH_CASES = [
     ("dit_self 4x1024x1024 h16 d72", 4, 1024, 1024, 16, 16, 72, False, 0,
      BOTH),
     ("dit_cross 4x1024x77 h16 d72", 4, 1024, 77, 16, 16, 72, False, 0, BOTH),
+    # the stream phase's trace H: its quarter-res class (32x32 latents, 256
+    # tokens) and its 32x64 aspect bucket (512 tokens), each at the rows of
+    # a shared segment (the CFG pair of one group) and of a branch segment
+    # (4 member rows, padded, x2 for the CFG pair)
+    ("stream_self 2x256x256 h16 d72", 2, 256, 256, 16, 16, 72, False, 0,
+     BOTH),
+    ("stream_self 8x256x256 h16 d72", 8, 256, 256, 16, 16, 72, False, 0,
+     BOTH),
+    ("stream_cross 2x256x77 h16 d72", 2, 256, 77, 16, 16, 72, False, 0,
+     BOTH),
+    ("stream_cross 8x256x77 h16 d72", 8, 256, 77, 16, 16, 72, False, 0,
+     BOTH),
+    ("stream_self 2x512x512 h16 d72", 2, 512, 512, 16, 16, 72, False, 0,
+     BOTH),
+    ("stream_self 8x512x512 h16 d72", 8, 512, 512, 16, 16, 72, False, 0,
+     BOTH),
+    ("stream_cross 2x512x77 h16 d72", 2, 512, 77, 16, 16, 72, False, 0,
+     BOTH),
+    ("stream_cross 8x512x77 h16 d72", 8, 512, 77, 16, 16, 72, False, 0,
+     BOTH),
+    # trace O's one-group (K = 1) segments: the CFG pair of its trunk, and
+    # the shared-uncond branch's group row + 4 member rows
+    ("stream_self 2x1024x1024 h16 d72", 2, 1024, 1024, 16, 16, 72, False,
+     0, BOTH),
+    ("stream_self 5x1024x1024 h16 d72", 5, 1024, 1024, 16, 16, 72, False,
+     0, BOTH),
+    ("stream_cross 2x1024x77 h16 d72", 2, 1024, 77, 16, 16, 72, False, 0,
+     BOTH),
+    ("stream_cross 5x1024x77 h16 d72", 5, 1024, 77, 16, 16, 72, False, 0,
+     BOTH),
     ("text_causal 8x77x77 h4 d192", 8, 77, 77, 4, 4, 192, True, 0, BOTH),
     ("gqa_window 2x1024 h16/4 d72 w256", 2, 1024, 1024, 16, 4, 72, True,
      256, BOTH),
@@ -929,7 +1262,17 @@ PATH_KERNELS = {"ddim": dict(needs=("flash_attention", "ddim_step"),
                               never=("ddim_step", "ssd_scan")),
                 "mamba2": dict(needs=("ssd_scan",),
                                never=("flash_attention", "ddim_step",
-                                      "dpmpp_step", "group_mean"))}
+                                      "dpmpp_step", "group_mean")),
+                # the stream phase's traces: H's DiT on sm90 and its f32 text
+                # tower on tf32x3, both solvers; O's DPM-Solver++ with the
+                # shared-uncond CFG
+                "stream:H": dict(needs=("flash_attention/sm90",
+                                        "flash_attention/tf32x3",
+                                        "ddim_step", "dpmpp_step"),
+                                 never=("group_mean", "ssd_scan")),
+                "stream:O": dict(needs=("flash_attention", "dpmpp_step",
+                                        "group_mean"),
+                                 never=("ddim_step", "ssd_scan"))}
 KERNELS = ("flash_attention", "ddim_step", "dpmpp_step", "group_mean",
            "ssd_scan")
 # the sampler-step kernels, whose bytes bound lies under a launch's cost
@@ -1215,15 +1558,201 @@ def phase_end_to_end(failures):
         gc.collect()
         torch.cuda.empty_cache()
     _bf16_forward_check(modules[0], failures)
-    return launches, nodes
+    return launches, nodes, (cfg, modules)
 
 
-# kernel nodes a fused DDIM update no longer makes, against the parent
-# commit's: the four schedule gathers (alphas[t], sigmas[t], alphas[t'],
-# sigmas[t'], now read by the kernel) and the 2M history indices a DDIM-only
-# segment built every step without reading them (i - 1, its clamp, the
-# t_prev gather, the warm-up flag's comparison)
-NODES_SAVED_PER_STEP = {"ddim": 8, "dpmpp": 0}
+def _stream_scheduler(modules, trace, device, **over):
+    """A streaming scheduler for ``STREAM_TRACES[trace]`` from a
+    ``SageServingEngine`` on ``modules`` (the kernel routes, noise from seed
+    0), with the trace's fault plan drawn afresh."""
+    from repro_torch.config import SageConfig
+    from repro_torch.serving.engine import SageServingEngine
+    from repro_torch.serving.faults import FaultPlan
+    spec = STREAM_TRACES[trace]
+    kw = dict(spec["scheduler"], **over)
+    if "faults" in spec:
+        kw["faults"] = FaultPlan(**spec["faults"])
+    engine = SageServingEngine(SageConfig(**spec["sage"]), *modules,
+                               group_size=4, attn_impl="kernel",
+                               step_impl="fused", device=device)
+    return engine.streaming_scheduler(**kw)
+
+
+def _stream_image_shapes(trace, latent_size):
+    """Each prompt's image (H, W, 3): the VAE's 8x of its class's latent."""
+    spec = STREAM_TRACES[trace]
+    classes = spec.get("classes") or (("all", 0, 0, (1, 1), (1, 1)),)
+    return {STREAM_PROMPTS[c[2]]: tuple(
+        8 * x for x in stream_shape(c[3], c[4], latent_size, 1)[:2]) + (3,)
+        for c in classes}
+
+
+def _graphs(sched):
+    """{runner key (phase, n_steps, samplers): graphs captured}, and the
+    capture seconds of all of them."""
+    return ({str(k[:3]): len(r.graphs) for k, r in sched._runners.items()},
+            sum(r.capture_s for r in sched._runners.values()))
+
+
+def _serve_stream(sched, trace, label, cfg, failures, now=0.0,
+                  expected=True):
+    """One counted pass of ``trace`` through ``sched`` (every launch count
+    set to 0 just before, read just after): with ``expected``, the
+    discrete outcome against ``STREAM_EXPECTED`` (a later pass on the same
+    scheduler without the tier and shape ledgers, which accumulate); the
+    kernels of the trace's path, every image finite and of its class's
+    shape; the pass's walls, ledgers, latencies, graphs, capture seconds
+    and memory printed.  Returns (records, launches by the wrappers, by
+    graph replays, the clock, the outcome)."""
+    import numpy as np
+    import torch
+
+    dev = torch.device("cuda:0")
+    ticks0, stats0 = sched.ticks, dict(sched.stats)
+    graphs0, cap0 = _graphs(sched)
+    _reset_counts(_counters())
+    torch.cuda.synchronize()
+    reserved0 = torch.cuda.memory_reserved(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    done, now = drive_stream(sched, trace, cfg.latent_size,
+                             cfg.latent_channels, now)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    wrappers, replayed = _ran()
+    graphs, cap = _graphs(sched)
+    st = {k: sched.stats[k] - stats0[k] for k in sched.stats}
+    ticks = sched.ticks - ticks0
+    lat = np.asarray([c.latency for c in done if c.image is not None])
+    new = {k: n - graphs0.get(k, 0) for k, n in graphs.items()
+           if n - graphs0.get(k, 0)}
+    tag = f"[stream:{trace}:{label}]"
+    log(f"{tag} ticks={ticks} wall_s={wall:.3f} wall_per_tick_s="
+        f"{wall / ticks:.4f} requests={st['requests']:g} served="
+        f"{lat.size} launches={st['launches']:g} launches_per_tick="
+        f"{st['launches'] / ticks:.4f} pad_waste="
+        f"{st['pack_pad_rows'] / max(st['pack_rows'], 1):.4f} nfe="
+        f"{st['nfe']:g} nfe_independent={st['nfe_independent']:g} "
+        f"cost_saving={1 - st['nfe'] / max(st['nfe_independent'], 1):.4f} "
+        f"latency_p50={np.percentile(lat, 50):g} latency_p95="
+        f"{np.percentile(lat, 95):g} ticks")
+    log(f"{tag} graphs captured by runner key {new or 'none'} "
+        f"({sum(new.values())} graphs, {sum(graphs.values())} on the "
+        f"scheduler) capture_s={cap - cap0:.3f}; memory reserved "
+        f"{torch.cuda.memory_reserved(dev) / 2 ** 30:.3f} GiB ("
+        f"{(torch.cuda.memory_reserved(dev) - reserved0) / 2 ** 30:+.3f} in "
+        f"the pass: the new graphs' pools), peak allocated "
+        f"{torch.cuda.max_memory_allocated(dev) / 2 ** 30:.3f} GiB")
+    log(f"{tag} launches by the wrappers {wrappers}; by graph replays "
+        f"{replayed}")
+    want = dict(STREAM_EXPECTED[trace])
+    got = stream_outcome(sched, done, cfg.latent_size, ticks0,
+                         stats0 if ticks0 else None)
+    if ticks0:
+        del want["tiers"], want["shapes"]
+    if not expected:
+        want = got
+    if got != want:
+        diff = sorted(k for k in want if got.get(k) != want[k])
+        failures.append(f"stream {trace} {label}: outcome differs from "
+                        f"STREAM_EXPECTED in {diff}: "
+                        f"{ {k: got.get(k) for k in diff} }")
+    verdict = ("equal to STREAM_EXPECTED" if got == want
+               else "DIFFERS from STREAM_EXPECTED") if expected else ""
+    log(f"{tag} outcome {verdict}: groups {got['groups']} by status "
+        f"{got['by_status']} by qos {got['by_qos']} preemptions="
+        f"{got['preemptions']:g} resumes={got['resumes']:g} retries="
+        f"{got['retries']:g} stalled_ticks={got['stalled_ticks']:g} "
+        f"deadline_met={got['deadline_met']:g} deadline_missed="
+        f"{got['deadline_missed']:g}")
+    _check_path_kernels(f"stream:{trace}", _summed(wrappers, replayed),
+                        failures)
+    shapes = _stream_image_shapes(trace, cfg.latent_size)
+    for c in done:
+        if c.image is not None and (c.image.shape != shapes[c.prompt]
+                                    or not np.isfinite(c.image).all()):
+            failures.append(f"stream {trace} {label}: image of {c.prompt!r}"
+                            f" has shape {c.image.shape} (want "
+                            f"{shapes[c.prompt]}) or non-finite values")
+    return done, wrappers, replayed, now, got
+
+
+def phase_stream(failures, cfg, modules):
+    """The streaming scheduler at full sage-dit width on the DiT paths'
+    modules: trace H twice on one scheduler (the first pass captures, the
+    second must only replay: no new graph, no wrapper launch but the text
+    tower's), once more under torch.profiler, then with ``packed=False`` on
+    a fresh scheduler (the same outcome but for the launch ledger; the
+    largest image difference from the packed run is printed beside the
+    1e-3 end-to-end tolerance, a report: cuBLAS picks its algorithms by
+    batch); trace O once.  Returns each trace's replayed pass's launches
+    (by the wrappers, by graph replays)."""
+    import numpy as np
+    import torch
+
+    dev = torch.device("cuda:0")
+    out = {}
+    sched = _stream_scheduler(modules, "H", dev)
+    first, *_ = _serve_stream(sched, "H", "capture", cfg, failures)
+    graphs = _graphs(sched)[0]
+    _, w, r, now, _ = _serve_stream(sched, "H", "replay", cfg, failures,
+                                    now=100.0)
+    out["stream:H"] = (w, r)
+    eager = {k: n for k, n in w.items() if n and k not in (
+        "flash_attention", "flash_attention/tf32x3")}
+    if _graphs(sched)[0] != graphs or eager:
+        failures.append(f"stream H replay: the second pass captured "
+                        f"{_graphs(sched)[0]} (first {graphs}) or launched "
+                        f"{eager} outside the graphs")
+    _reset_counts(_counters())
+    rows = _profile("stream:H", lambda: drive_stream(
+        sched, "H", cfg.latent_size, cfg.latent_channels, now + 100.0),
+        ("ddim_step_kernel", "dpmpp_step_kernel", "flash_sm90_kernel",
+         "flash_tf32x3_kernel"))
+    _trace_check("stream:H", rows, _summed(*_ran()), failures)
+    del sched
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    oracle = _stream_scheduler(modules, "H", dev, packed=False)
+    done, *_, got = _serve_stream(oracle, "H", "per-group", cfg, failures,
+                                  expected=False)
+    want = dict(STREAM_EXPECTED["H"])
+    differ = sorted(k for k in want if got[k] != want[k])
+    if not set(differ) <= {"launches", "pack_rows", "pack_pad_rows",
+                           "shapes"}:
+        failures.append(f"stream H per-group: outcome differs from the "
+                        f"packed one in {differ}")
+    by = {}
+    for c in first:
+        by.setdefault(c.group_id, []).append(c)
+    err = max(float(np.abs(c.image - by[c.group_id].pop(0).image).max())
+              for c in done)
+    log(f"[stream:H:per-group] outcome equal to the packed run's but for "
+        f"{differ} (launches {got['launches']:g} against "
+        f"{want['launches']:g}); largest image difference from the packed "
+        f"run {err:.3e} (the end-to-end tolerance 1e-3; a report, not a "
+        f"check)")
+    del oracle
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    sched = _stream_scheduler(modules, "O", dev)
+    _, w, r, _, _ = _serve_stream(sched, "O", "capture", cfg, failures)
+    out["stream:O"] = (w, r)
+    log(f"[stream:O] faults injected {sched.faults.injected} over "
+        f"{sched.faults.queries} queries")
+    del sched
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+# kernel nodes a step of each path's segments saves against the parent
+# commit's: none, the streaming slice leaves the run_batch segments' graphs
+# as they were (118230 ddim, 118912 dpmpp; the DDIM kernel's own gathers
+# took 8 a step out against the commit before, 240 over the 30 steps)
+NODES_SAVED_PER_STEP = {"ddim": 0, "dpmpp": 0}
 
 
 def _solver_step_us():
@@ -1890,6 +2419,32 @@ def phase_reference(failures):
         if not ok:
             failures.append(f"reference {path}: card vs cpu differ "
                             f"(same={same}, err={err:.3e})")
+    for trace in STREAM_TRACES:
+        out = []
+        for mods, dev in ((gpu_mods, torch.device("cuda:0")),
+                          (cpu_mods, torch.device("cpu"))):
+            s = _stream_scheduler(mods, trace, dev)
+            done, _ = drive_stream(s, trace, cfg.latent_size,
+                                   cfg.latent_channels)
+            out.append((stream_outcome(s, done, cfg.latent_size), done))
+        (gpu, gdone), (cpu, cdone) = out
+        fields = ("prompt", "group_id", "nfe_share", "latency", "status")
+        same = (gpu == cpu == STREAM_EXPECTED[trace]
+                and [[getattr(c, f) for f in fields] for c in gdone]
+                == [[getattr(c, f) for f in fields] for c in cdone])
+        pairs = [(a.image, b.image) for a, b in zip(gdone, cdone)
+                 if a.image is not None and b.image is not None]
+        err = max(float(np.abs(a - b).max()) for a, b in pairs)
+        ok = same and all(np.allclose(a, b, rtol=1e-3, atol=1e-3)
+                          for a, b in pairs)
+        log(f"[reference:stream:{trace}] smoke streaming scheduler card vs "
+            f"cpu: outcome and records {'equal' if same else 'DIFFER'} "
+            f"(ticks {gpu['ticks']}, launches {gpu['launches']:g}, nfe "
+            f"{gpu['nfe']:g}), image max_abs_err={err:.3e} tol=1e-3 "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"reference stream {trace}: card vs cpu differ "
+                            f"(same={same}, err={err:.3e})")
     _reference_mamba2(failures)
 
 
@@ -1978,18 +2533,25 @@ def main(argv) -> int:
     t1 = time.perf_counter()
     rows = phase_kernels(failures)
     t2 = time.perf_counter()
-    launches, nodes = phase_end_to_end(failures)
-    launches["mamba2"] = phase_mamba2(failures)
+    launches, nodes, dit = phase_end_to_end(failures)
     t3 = time.perf_counter()
-    phase_reference(failures)
+    launches.update(phase_stream(failures, *dit))
+    del dit
+    gc.collect()
+    torch.cuda.empty_cache()
     t4 = time.perf_counter()
+    launches["mamba2"] = phase_mamba2(failures)
+    t5 = time.perf_counter()
+    phase_reference(failures)
+    t6 = time.perf_counter()
     gc.collect()
     torch.cuda.empty_cache()
     phase_graph_nodes(failures, nodes, parent)
-    t5 = time.perf_counter()
+    t7 = time.perf_counter()
     log(f"[time] build {t1 - t0:.1f} s, kernels {t2 - t1:.1f} s, "
-        f"e2e {t3 - t2:.1f} s, reference {t4 - t3:.1f} s, graph nodes "
-        f"{t5 - t4:.1f} s")
+        f"e2e DiT {t3 - t2:.1f} s, stream {t4 - t3:.1f} s, e2e mamba2 "
+        f"{t5 - t4:.1f} s, reference {t6 - t5:.1f} s, graph nodes "
+        f"{t7 - t6:.1f} s")
     if failures:
         for f in failures:
             print(f"chip_smoke FAILED: {f}", file=sys.stderr)

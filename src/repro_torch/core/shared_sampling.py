@@ -287,8 +287,10 @@ def fork_carry(carry: SampleCarry, n_members: int) -> SampleCarry:
     """Branch point: broadcast the K group latents to (K*N) member rows.
     The history restarts at the fork, so ``eps_prev`` is zeroed."""
     K, H, W, C = carry.z.shape
+    # a copy: for K = 1 the reshape would be a view repeating one row
+    # (stride 0), which the step kernels refuse
     zb = carry.z[:, None].expand(K, n_members, H, W, C).reshape(
-        K * n_members, H, W, C)
+        K * n_members, H, W, C).contiguous()
     return SampleCarry(zb, torch.zeros_like(zb), carry.step_idx)
 
 
@@ -369,8 +371,10 @@ def branch_segment(eps_fn: EpsFn, sched: Schedule, sage: SageConfig,
             tg = t.reshape(K, N)[:, 0] if t.ndim else t.expand(K)
             eps = eps_fn(torch.cat([zg, z], 0),
                          torch.cat([tg, t.expand(K * N)], 0), cc)
+            # a copy: for one group (K = 1) the reshape would be a view
+            # repeating one row (stride 0), which the step kernels refuse
             eps_u = eps[:K, None].expand((K, N) + tuple(z.shape[1:])
-                                         ).reshape(z.shape)
+                                         ).reshape(z.shape).contiguous()
             eps_c = eps[K:]
         else:
             eps_u, eps_c = _eps_pair(eps_fn, z, t.expand(K * N), cond_flat,

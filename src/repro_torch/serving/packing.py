@@ -62,13 +62,16 @@ def pack_signature(g, slice_steps: int, mix_samplers: bool = False,
 
 def build_packs(groups: Sequence, slice_steps: int,
                 mix_samplers: bool = False,
-                align_phases: bool = False) -> List[Tuple[PackKey, List]]:
+                align_phases: bool = False,
+                order_key=None) -> List[Tuple[PackKey, List]]:
     """Bucket in-flight groups by pack signature (insertion-ordered).
 
     ``align_phases=True`` sets every group's segment length to the
     minimum steps remaining among its phase-mates (capped by
     ``slice_steps``), so each phase collapses to ONE bucket — groups stop
-    together at the earliest phase boundary."""
+    together at the earliest phase boundary.  ``order_key`` (a group ->
+    sort key, e.g. a launch order of ``serving.policies``) stable-sorts
+    each bucket's rows, so rows sit in priority order within a launch."""
     phase_steps: Dict[str, int] = {}
     if align_phases:
         for g in groups:
@@ -80,6 +83,9 @@ def build_packs(groups: Sequence, slice_steps: int,
             pack_signature(g, slice_steps, mix_samplers,
                            n_steps=phase_steps.get(g.state)),
             []).append(g)
+    if order_key is not None:
+        for gs in packs.values():
+            gs.sort(key=order_key)
     return list(packs.items())
 
 

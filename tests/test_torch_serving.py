@@ -36,6 +36,7 @@ from repro_torch.models import text_encoder as te
 from repro_torch.models.dit import DiT
 from repro_torch.serving import packing
 from repro_torch.serving.engine import SageServingEngine
+from repro_torch.serving.scheduler import RequestScheduler
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -296,6 +297,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 20
+    # the streaming surface: the scheduler and its own policies and faults
+    serving = ROOT / "src" / "repro_torch" / "serving"
+    for name in ("scheduler.py", "policies.py", "faults.py", "engine.py"):
+        assert serving / name in files, name
     bad = [(str(f.relative_to(ROOT)), m) for f in files for m in _imports(f)
            if m.split(".")[0] in ("jax", "jaxlib", "repro")]
     assert not bad, bad
@@ -313,6 +318,14 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
     text = te.TextTower(te.text_cfg(dim=16, layers=1), device="cpu")
     with pytest.raises(RuntimeError, match="cuda"):
         SageServingEngine(SageConfig(), model, text)
+    with pytest.raises(RuntimeError, match="cuda"):
+        RequestScheduler(SageConfig(), model, text)
+    # a streaming scheduler runs where its engine runs, and asked for the
+    # card it raises too
+    eng = SageServingEngine(SageConfig(), model, text, device="cpu")
+    assert eng.streaming_scheduler().device.type == "cpu"
+    with pytest.raises(RuntimeError, match="cuda"):
+        eng.streaming_scheduler(device="cuda")
     with pytest.raises(RuntimeError, match="cuda"):
         ss.shared_sample(model, make_schedule(10), SageConfig(total_steps=2),
                          torch.zeros(1, 8, 8, 4), torch.zeros(1, 1, 48, 64),
