@@ -73,14 +73,26 @@ without the result line:
    under ``torch.profiler``, then with ``packed=False`` on a fresh
    scheduler; trace O (QoS classes with deadlines under a 2-group cap with
    preemption, shed admission, the pad-aware launch policy and a seeded
-   fault plan) once.  Each pass's discrete outcome (``stream_outcome``:
-   ticks, launch / NFE / overload ledgers, groups, statuses, tier and shape
-   ledgers) must equal ``STREAM_EXPECTED``, the JAX scheduler's at smoke
-   size, the per-group run's but for its launches; each trace must launch
-   exactly its path's kernels (``PATH_KERNELS``), every image be finite and
-   of its class's shape.  Walls, ticks, launches per tick, pad waste, NFE,
-   latencies, the graphs captured by runner key, capture seconds and
-   memory are printed;
+   fault plan) once; trace C (the cross-batch trunk cache: two waves of
+   one shape, two step budgets co-packed on 2-D grids, exact-key hits on
+   the device and on the host, spills and a promotion) in four passes on
+   one scheduler, each with its own cache: scan (capturing), LSH
+   (replaying: images bitwise those of scan), every would-be hit corrupted
+   (bitwise the pass without a cache, as many integrity drops as
+   injections), none (NFE = cached + saved); then ``ddim_step`` and flash
+   against their plain versions on every stack the four passes handed
+   them (``record_stacks``; each stack's per-row steps from the same
+   passes at smoke size on the CPU), in f32 and bf16, and the capture and
+   no-cache passes again with the DiT and VAE in f32, whose groups
+   computed in both must agree within 1e-3.  Each pass's discrete outcome
+   (``stream_outcome``: ticks, launch / NFE / overload ledgers, groups,
+   statuses, tier and shape ledgers, the cache's ledger) must equal
+   ``STREAM_EXPECTED``, the JAX scheduler's at smoke size, the per-group
+   run's but for its launches; each trace must launch exactly its path's
+   kernels (``PATH_KERNELS``), every image be finite and of its class's
+   shape.  Walls, ticks, launches per tick, pad waste, NFE, latencies, the
+   packs with a 2-D grid, the graphs captured by runner key, capture
+   seconds and memory are printed;
 5. end to end, ``mamba2`` — the AR shared-prefix path at the full
    ``mamba2-780m`` width (48 SSD layers, d_model 1536, 48 heads of 64,
    d_state 128, vocab 50280, bf16 activations): the launcher
@@ -97,12 +109,16 @@ without the result line:
    launch once per layer of every prefill call and no other kernel at all;
    token-step counts must equal ``P + N (S - P)``; each group's logits must
    equal a full independent prefill's, within bf16's own error in bf16 and
-   within 1e-3 of their magnitude in f32.  One trunk
-   prefill and the replayed decode loop are then traced, each trace held
-   to the counts;
+   within 1e-3 of their magnitude in f32.  Then ``cached_prefix_prefill``
+   over the same groups, g0, g1, g0, g1, through a ``TrunkCache`` of one
+   payload on the card and two on the host: two misses (48 ``ssd_scan``
+   launches each), then two host hits (none, 256 token steps, logits and
+   caches bitwise the miss's), with the CRC, spill and promotion
+   milliseconds of a payload.  One trunk prefill and the replayed decode
+   loop are then traced, each trace held to the counts;
 6. reference — each path at smoke size on the card against the plain CPU
    path: equal groups, NFE, launches and token-step counts, images and
-   logits within tolerance; the two stream traces the same way (equal
+   logits within tolerance; the stream traces the same way (equal
    outcomes and records, images within 1e-3);
 7. graph nodes — the kernel nodes of each DiT path's segment graphs
    (``[graph-nodes:<path>]``), and the device time of one segment step
@@ -221,6 +237,24 @@ STREAM_TRACES = {
                     max_faults=6),
         arrivals=dict(ticks=16, batch=3, batch_deadline=24.0,
                       interactive=2, every=4, interactive_deadline=12.0)),
+    # "cache": the cross-batch trunk cache (TrunkCache(tau_trunk=0.9),
+    # budgets in entries of the trace's own latent, see trunk_entry_bytes:
+    # 1.5 on the device, 4 on the host).  Wave A at t = 0 co-packs two step
+    # budgets of one shape (2-D grids); wave B, a tick after both A groups
+    # forked, repeats both classes (exact-key hits: one found on the
+    # device, one on the host and promoted) and adds a premium class of
+    # prompt 0, which misses because the step budget rides the cfg_key.
+    # waves: (ticks before the wave, its classes)
+    "C": dict(
+        sage=dict(total_steps=30),
+        scheduler=dict(slice_steps=4, max_wait_ticks=0, policy="eager"),
+        cache=dict(tau_trunk=0.9, max_entries=1.5, host_entries=4),
+        waves=((0, (("set", 4, 0, (1, 1), (1, 1), "standard", "ddim"),
+                    ("draft", 4, 1, (1, 1), (1, 1), "draft", "ddim"))),
+               (3, (("set", 4, 0, (1, 1), (1, 1), "standard", "ddim"),
+                    ("draft", 4, 1, (1, 1), (1, 1), "draft", "ddim"),
+                    ("premium", 2, 0, (1, 1), (1, 1), "premium",
+                     "ddim"))))),
 }
 
 
@@ -306,23 +340,237 @@ STREAM_EXPECTED = {'H': {'ticks': 12,
                                             'rows': 135.0}}}}
 
 
+# trace C's passes on one scheduler (``phase_stream``): "C" is the cached
+# pass (scan, then lsh, whose outcome is the same but for the tier and shape
+# ledgers, which accumulate), "C:corrupt" the pass whose every would-be hit
+# is corrupted and dropped, "C:nocache" the pass without a cache; each the
+# JAX scheduler's at smoke size (tests/test_torch_cache_serving.py)
+STREAM_EXPECTED['C'] = {'by_qos': {'interactive/ok': 18},
+                        'by_status': {'ok': 18},
+                        'cache': {'admission_rejects': 0.0,
+                                  'entries': 3,
+                                  'evictions': 0.0,
+                                  'exact_hits': 2.0,
+                                  'fault_forced_misses': 0.0,
+                                  'hit_groups': [2, 3],
+                                  'hits': 2.0,
+                                  'hits_hbm': 1.0,
+                                  'hits_host': 1.0,
+                                  'inserts': 3.0,
+                                  'integrity_drops': 0.0,
+                                  'misses': 3.0,
+                                  'nfe_saved': 28.0,
+                                  'overwrites': 0.0,
+                                  'promotions': 1.0,
+                                  'spills': 3.0},
+                        'completed': 18.0,
+                        'deadline_met': 18.0,
+                        'deadline_missed': 0.0,
+                        'degraded': 0.0,
+                        'groups': [(0, 0, 'interactive', 'standard', 'ok', 4),
+                                   (1, 1, 'interactive', 'draft', 'ok', 4),
+                                   (2, 0, 'interactive', 'standard', 'ok', 4),
+                                   (3, 1, 'interactive', 'draft', 'ok', 4),
+                                   (4, 0, 'interactive', 'premium', 'ok', 2)],
+                        'launch_faults': 0.0,
+                        'launches': 24.0,
+                        'nfe': 676.0,
+                        'nfe_independent': 900.0,
+                        'nfe_wasted': 0.0,
+                        'pack_pad_rows': 16.0,
+                        'pack_rows': 113.0,
+                        'preemptions': 0.0,
+                        'rejected_expired': 0.0,
+                        'requests': 18.0,
+                        'resumes': 0.0,
+                        'retries': 0.0,
+                        'shapes': {'1x1': {'launches': 24.0,
+                                           'pad_rows': 16.0,
+                                           'rows': 113.0}},
+                        'shed': 0.0,
+                        'shed_faulted': 0.0,
+                        'stalled_ticks': 0.0,
+                        'ticks': 15,
+                        'tiers': {'draft': {'completed': 8.0,
+                                            'nfe': 170.0,
+                                            'requests': 8.0},
+                                  'premium': {'completed': 2.0,
+                                              'nfe': 152.0,
+                                              'requests': 2.0},
+                                  'standard': {'completed': 8.0,
+                                               'nfe': 354.0,
+                                               'requests': 8.0}}}
+STREAM_EXPECTED['C:corrupt'] = {'by_qos': {'interactive/ok': 18},
+                                'by_status': {'ok': 18},
+                                'cache': {'admission_rejects': 0.0,
+                                          'entries': 3,
+                                          'evictions': 0.0,
+                                          'exact_hits': 0.0,
+                                          'fault_forced_misses': 0.0,
+                                          'hit_groups': [],
+                                          'hits': 0.0,
+                                          'hits_hbm': 0.0,
+                                          'hits_host': 0.0,
+                                          'inserts': 5.0,
+                                          'integrity_drops': 2.0,
+                                          'misses': 5.0,
+                                          'nfe_saved': 0.0,
+                                          'overwrites': 0.0,
+                                          'promotions': 0.0,
+                                          'spills': 3.0},
+                                'completed': 18.0,
+                                'deadline_met': 18.0,
+                                'deadline_missed': 0.0,
+                                'degraded': 0.0,
+                                'groups': [(0,
+                                            0,
+                                            'interactive',
+                                            'standard',
+                                            'ok',
+                                            4),
+                                           (1,
+                                            1,
+                                            'interactive',
+                                            'draft',
+                                            'ok',
+                                            4),
+                                           (2,
+                                            0,
+                                            'interactive',
+                                            'standard',
+                                            'ok',
+                                            4),
+                                           (3,
+                                            1,
+                                            'interactive',
+                                            'draft',
+                                            'ok',
+                                            4),
+                                           (4,
+                                            0,
+                                            'interactive',
+                                            'premium',
+                                            'ok',
+                                            2)],
+                                'launch_faults': 0.0,
+                                'launches': 27.0,
+                                'nfe': 704.0,
+                                'nfe_independent': 900.0,
+                                'nfe_wasted': 0.0,
+                                'pack_pad_rows': 16.0,
+                                'pack_rows': 118.0,
+                                'preemptions': 0.0,
+                                'rejected_expired': 0.0,
+                                'requests': 18.0,
+                                'resumes': 0.0,
+                                'retries': 0.0,
+                                'shed': 0.0,
+                                'shed_faulted': 0.0,
+                                'stalled_ticks': 0.0,
+                                'ticks': 15}
+STREAM_EXPECTED['C:nocache'] = {'by_qos': {'interactive/ok': 18},
+                                'by_status': {'ok': 18},
+                                'completed': 18.0,
+                                'deadline_met': 18.0,
+                                'deadline_missed': 0.0,
+                                'degraded': 0.0,
+                                'groups': [(0,
+                                            0,
+                                            'interactive',
+                                            'standard',
+                                            'ok',
+                                            4),
+                                           (1,
+                                            1,
+                                            'interactive',
+                                            'draft',
+                                            'ok',
+                                            4),
+                                           (2,
+                                            0,
+                                            'interactive',
+                                            'standard',
+                                            'ok',
+                                            4),
+                                           (3,
+                                            1,
+                                            'interactive',
+                                            'draft',
+                                            'ok',
+                                            4),
+                                           (4,
+                                            0,
+                                            'interactive',
+                                            'premium',
+                                            'ok',
+                                            2)],
+                                'launch_faults': 0.0,
+                                'launches': 27.0,
+                                'nfe': 704.0,
+                                'nfe_independent': 900.0,
+                                'nfe_wasted': 0.0,
+                                'pack_pad_rows': 16.0,
+                                'pack_rows': 118.0,
+                                'preemptions': 0.0,
+                                'rejected_expired': 0.0,
+                                'requests': 18.0,
+                                'resumes': 0.0,
+                                'retries': 0.0,
+                                'shed': 0.0,
+                                'shed_faulted': 0.0,
+                                'stalled_ticks': 0.0,
+                                'ticks': 15}
+
+
 def stream_shape(frac_h, frac_w, latent_size, channels):
     """A class's latent (H, W, C) at a config's grid."""
     return (latent_size * frac_h[0] // frac_h[1],
             latent_size * frac_w[0] // frac_w[1], channels)
 
 
+def trunk_entry_bytes(shape):
+    """Bytes of one diffusion trunk entry of latent ``shape`` (H, W, C): z
+    and the solver history, both f32 (1, H, W, C)."""
+    return 2 * 4 * math.prod(shape)
+
+
+def _trace_spec(trace):
+    """A trace's spec, by name or given as a spec dict."""
+    return STREAM_TRACES[trace] if isinstance(trace, str) else trace
+
+
+def cache_kwargs(trace, latent_size, channels):
+    """``TrunkCache`` arguments of a trace (a name or a spec), its budgets
+    in bytes."""
+    c = dict(_trace_spec(trace)["cache"])
+    entry = trunk_entry_bytes((latent_size, latent_size, channels))
+    c["max_bytes"] = int(c.pop("max_entries") * entry)
+    c["host_bytes"] = int(c.pop("host_entries") * entry)
+    return c
+
+
 def drive_stream(sched, trace, latent_size, channels, now=0.0):
-    """Serve ``STREAM_TRACES[trace]`` through a streaming scheduler (the
-    port's or the JAX package's: only ``submit``, ``tick`` and ``pending``
-    are used) until it drains.  Returns (completion records, the clock)."""
-    spec = STREAM_TRACES[trace]
+    """Serve ``STREAM_TRACES[trace]`` (or a spec of that form) through a
+    streaming scheduler (the port's or the JAX package's: only ``submit``,
+    ``tick`` and ``pending`` are used) until it drains.  Returns
+    (completion records, the clock)."""
+    spec = _trace_spec(trace)
     done = []
-    if "classes" in spec:
-        for _, n, p, fh, fw, tier, sampler in spec["classes"]:
+
+    def submit(classes):
+        for _, n, p, fh, fw, tier, sampler in classes:
             sched.submit([STREAM_PROMPTS[p]] * n, now=now,
                          shape=stream_shape(fh, fw, latent_size, channels),
                          tier=tier, sampler=sampler)
+    if "classes" in spec:
+        submit(spec["classes"])
+    elif "waves" in spec:
+        waves = dict(spec["waves"])
+        for k in range(max(waves) + 1):
+            submit(waves.get(k, ()))
+            if k < max(waves):
+                now += 1.0
+                done.extend(sched.tick(now=now))
     else:
         a = spec["arrivals"]
         for k in range(a["ticks"]):
@@ -367,6 +615,16 @@ def stream_outcome(sched, done, latent_size, ticks0=0, stats0=None):
     out["groups"] = sorted(k + (n,) for k, n in groups.items())
     out["by_status"] = dict(sorted(status.items()))
     out["by_qos"] = dict(sorted(qos.items()))
+    tc = sched.trunk_cache
+    if tc is not None:
+        # the cache's own ledger (a pass brings its own cache) and the
+        # groups that forked from a cached trunk
+        out["cache"] = dict(
+            {k: float(v) for k, v in sorted(tc.stats.items())},
+            nfe_saved=float(sched.stats["nfe_saved_cache"]
+                            - stats0.get("nfe_saved_cache", 0)),
+            entries=len(tc), hit_groups=sorted({
+                c.group_id - gid0 for c in done if c.cache_hit}))
     if not stats0:
         out["tiers"] = {t: {k: float(v) for k, v in sorted(d.items())}
                         for t, d in sorted(sched.tier_stats.items())}
@@ -377,6 +635,61 @@ def stream_outcome(sched, done, latent_size, ticks0=0, stats0=None):
                 k: float(v) for k, v in sorted(d.items())}
         out["shapes"] = shapes
     return out
+
+
+@contextlib.contextmanager
+def count_2d_grids(packing):
+    """Count the packs a scheduler launches with a 2-D grid (groups of
+    several step budgets in one pack): the rank-2 results of
+    ``packing.pack_grid`` (the port's module, or the JAX package's), which
+    every segment launch calls once."""
+    seen = [0]
+    orig = packing.pack_grid
+
+    def spy(*args, **kw):
+        grid = orig(*args, **kw)
+        seen[0] += len(grid.shape) == 2
+        return grid
+    packing.pack_grid = spy
+    try:
+        yield seen
+    finally:
+        packing.pack_grid = orig
+
+
+@contextlib.contextmanager
+def record_stacks():
+    """Record the stacks the port's serving path hands ``ddim_step`` and
+    flash attention through ``kernels.dispatch`` (a graph replay calls no
+    wrapper, so each captured stack is seen at its warm-up and capture).
+    Yields {"ddim": {(z shape, z dtype, eps dtype, t, t_next)}, "flash":
+    {(q shape, k shape, dtype, causal, window)}}; t and t_next are the
+    per-row timesteps (a tuple) on a CPU tensor and None on the card,
+    where reading them would sync inside a capture.  Host-only
+    bookkeeping: nothing is launched."""
+    from repro_torch.kernels import dispatch
+    seen = {"ddim": set(), "flash": set()}
+    ddim, flash = dispatch.fused_cfg_ddim_step, dispatch.flash_attention
+
+    def steps(t):
+        return tuple(t.reshape(-1).tolist()) if t.device.type == "cpu" \
+            else None
+
+    def ddim_spy(z, eu, ec, g, alphas, sigmas, t, t_next, **kw):
+        seen["ddim"].add((tuple(z.shape), str(z.dtype), str(eu.dtype),
+                          steps(t), steps(t_next)))
+        return ddim(z, eu, ec, g, alphas, sigmas, t, t_next, **kw)
+
+    def flash_spy(q, k, v, **kw):
+        seen["flash"].add((tuple(q.shape), tuple(k.shape), str(q.dtype),
+                           kw.get("causal"), kw.get("window", 0)))
+        return flash(q, k, v, **kw)
+    dispatch.fused_cfg_ddim_step, dispatch.flash_attention = \
+        ddim_spy, flash_spy
+    try:
+        yield seen
+    finally:
+        dispatch.fused_cfg_ddim_step, dispatch.flash_attention = ddim, flash
 
 
 def log(msg: str) -> None:
@@ -575,14 +888,21 @@ def _width(mangled):
     return int(m.group(1)) if m else -1
 
 
+def _err_worst(key, dtype, got, want):
+    """The largest |got - want| and the largest ratio of it to
+    ``TOL[(key, dtype)] * (1 + |want|)``."""
+    tol = TOL[(key, dtype)]
+    diff = (got.float() - want.float()).abs()
+    return (diff.max().item(),
+            (diff / (tol * (1 + want.float().abs()))).max().item())
+
+
 def _check(failures, kernel, case, dtype, got, want, extra, tol_key=None):
     """allclose(rtol=tol, atol=tol): |kernel - plain| <= tol * (1 + |plain|)
     everywhere; ``worst`` is the largest ratio of the two sides (<= 1).
     ``tol_key`` names a TOL entry other than the kernel's own."""
     tol = TOL[(tol_key or kernel, dtype)]
-    diff = (got.float() - want.float()).abs()
-    err = diff.max().item()
-    worst = (diff / (tol * (1 + want.float().abs()))).max().item()
+    err, worst = _err_worst(tol_key or kernel, dtype, got, want)
     ok = worst <= 1.0
     log(f"[check] {kernel:15s} {case:34s} {dtype:8s} max_abs_err={err:.3e} "
         f"tol={tol:g} worst={worst:.3f} {'ok' if ok else 'FAIL'} {extra}")
@@ -1272,7 +1592,17 @@ PATH_KERNELS = {"ddim": dict(needs=("flash_attention", "ddim_step"),
                                  never=("group_mean", "ssd_scan")),
                 "stream:O": dict(needs=("flash_attention", "dpmpp_step",
                                         "group_mean"),
-                                 never=("ddim_step", "ssd_scan"))}
+                                 never=("ddim_step", "ssd_scan")),
+                # C's four passes (DDIM, trunk-cache hits branching from the
+                # cached latent, 2-D grids), and the cached prefix prefill
+                "stream:C": dict(needs=("flash_attention/sm90",
+                                        "flash_attention/tf32x3",
+                                        "ddim_step"),
+                                 never=("dpmpp_step", "group_mean",
+                                        "ssd_scan")),
+                "mamba2:cache": dict(needs=("ssd_scan",),
+                                     never=("flash_attention", "ddim_step",
+                                            "dpmpp_step", "group_mean"))}
 KERNELS = ("flash_attention", "ddim_step", "dpmpp_step", "group_mean",
            "ssd_scan")
 # the sampler-step kernels, whose bytes bound lies under a launch's cost
@@ -1564,14 +1894,20 @@ def phase_end_to_end(failures):
 def _stream_scheduler(modules, trace, device, **over):
     """A streaming scheduler for ``STREAM_TRACES[trace]`` from a
     ``SageServingEngine`` on ``modules`` (the kernel routes, noise from seed
-    0), with the trace's fault plan drawn afresh."""
+    0), with the trace's fault plan drawn afresh and its trunk cache (scan
+    index, budgets at the DiT's latent) made anew."""
     from repro_torch.config import SageConfig
     from repro_torch.serving.engine import SageServingEngine
     from repro_torch.serving.faults import FaultPlan
+    from repro_torch.serving.trunk_cache import TrunkCache
     spec = STREAM_TRACES[trace]
     kw = dict(spec["scheduler"], **over)
     if "faults" in spec:
         kw["faults"] = FaultPlan(**spec["faults"])
+    if "cache" in spec and "trunk_cache" not in kw:
+        cfg = modules[0].cfg
+        kw["trunk_cache"] = TrunkCache(**cache_kwargs(
+            trace, cfg.latent_size, cfg.latent_channels))
     engine = SageServingEngine(SageConfig(**spec["sage"]), *modules,
                                group_size=4, attn_impl="kernel",
                                step_impl="fused", device=device)
@@ -1581,7 +1917,9 @@ def _stream_scheduler(modules, trace, device, **over):
 def _stream_image_shapes(trace, latent_size):
     """Each prompt's image (H, W, 3): the VAE's 8x of its class's latent."""
     spec = STREAM_TRACES[trace]
-    classes = spec.get("classes") or (("all", 0, 0, (1, 1), (1, 1)),)
+    classes = (spec.get("classes")
+               or tuple(c for _, wave in spec.get("waves", ()) for c in wave)
+               or (("all", 0, 0, (1, 1), (1, 1)),))
     return {STREAM_PROMPTS[c[2]]: tuple(
         8 * x for x in stream_shape(c[3], c[4], latent_size, 1)[:2]) + (3,)
         for c in classes}
@@ -1595,17 +1933,19 @@ def _graphs(sched):
 
 
 def _serve_stream(sched, trace, label, cfg, failures, now=0.0,
-                  expected=True):
+                  expected=True, expect=None):
     """One counted pass of ``trace`` through ``sched`` (every launch count
     set to 0 just before, read just after): with ``expected``, the
-    discrete outcome against ``STREAM_EXPECTED`` (a later pass on the same
-    scheduler without the tier and shape ledgers, which accumulate); the
-    kernels of the trace's path, every image finite and of its class's
-    shape; the pass's walls, ledgers, latencies, graphs, capture seconds
-    and memory printed.  Returns (records, launches by the wrappers, by
-    graph replays, the clock, the outcome)."""
+    discrete outcome against ``STREAM_EXPECTED[expect or trace]`` (a later
+    pass on the same scheduler without the tier and shape ledgers, which
+    accumulate); the kernels of the trace's path, every image finite and
+    of its class's shape; the pass's walls, ledgers, latencies, graphs,
+    capture seconds, memory and packs with a 2-D grid printed.  Returns
+    (records, launches by the wrappers, by graph replays, the clock, the
+    outcome, the packs with a 2-D grid)."""
     import numpy as np
     import torch
+    from repro_torch.serving import packing
 
     dev = torch.device("cuda:0")
     ticks0, stats0 = sched.ticks, dict(sched.stats)
@@ -1615,8 +1955,9 @@ def _serve_stream(sched, trace, label, cfg, failures, now=0.0,
     reserved0 = torch.cuda.memory_reserved(dev)
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    done, now = drive_stream(sched, trace, cfg.latent_size,
-                             cfg.latent_channels, now)
+    with count_2d_grids(packing) as grids:
+        done, now = drive_stream(sched, trace, cfg.latent_size,
+                                 cfg.latent_channels, now)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     wrappers, replayed = _ran()
@@ -1635,7 +1976,7 @@ def _serve_stream(sched, trace, label, cfg, failures, now=0.0,
         f"{st['nfe']:g} nfe_independent={st['nfe_independent']:g} "
         f"cost_saving={1 - st['nfe'] / max(st['nfe_independent'], 1):.4f} "
         f"latency_p50={np.percentile(lat, 50):g} latency_p95="
-        f"{np.percentile(lat, 95):g} ticks")
+        f"{np.percentile(lat, 95):g} ticks packs_with_2d_grid={grids[0]}")
     log(f"{tag} graphs captured by runner key {new or 'none'} "
         f"({sum(new.values())} graphs, {sum(graphs.values())} on the "
         f"scheduler) capture_s={cap - cap0:.3f}; memory reserved "
@@ -1645,11 +1986,9 @@ def _serve_stream(sched, trace, label, cfg, failures, now=0.0,
         f"{torch.cuda.max_memory_allocated(dev) / 2 ** 30:.3f} GiB")
     log(f"{tag} launches by the wrappers {wrappers}; by graph replays "
         f"{replayed}")
-    want = dict(STREAM_EXPECTED[trace])
+    want = _expected_outcome(expect or trace, ticks0)
     got = stream_outcome(sched, done, cfg.latent_size, ticks0,
                          stats0 if ticks0 else None)
-    if ticks0:
-        del want["tiers"], want["shapes"]
     if not expected:
         want = got
     if got != want:
@@ -1674,7 +2013,7 @@ def _serve_stream(sched, trace, label, cfg, failures, now=0.0,
             failures.append(f"stream {trace} {label}: image of {c.prompt!r}"
                             f" has shape {c.image.shape} (want "
                             f"{shapes[c.prompt]}) or non-finite values")
-    return done, wrappers, replayed, now, got
+    return done, wrappers, replayed, now, got, grids[0]
 
 
 def phase_stream(failures, cfg, modules):
@@ -1685,8 +2024,10 @@ def phase_stream(failures, cfg, modules):
     a fresh scheduler (the same outcome but for the launch ledger; the
     largest image difference from the packed run is printed beside the
     1e-3 end-to-end tolerance, a report: cuBLAS picks its algorithms by
-    batch); trace O once.  Returns each trace's replayed pass's launches
-    (by the wrappers, by graph replays)."""
+    batch); trace O once; trace C in its four passes (``_stream_cache``)
+    and its f32 witness (``_stream_cache_f32``).  Returns each trace's
+    replayed pass's launches (trace C's: its four passes'), by the
+    wrappers and by graph replays."""
     import numpy as np
     import torch
 
@@ -1695,8 +2036,8 @@ def phase_stream(failures, cfg, modules):
     sched = _stream_scheduler(modules, "H", dev)
     first, *_ = _serve_stream(sched, "H", "capture", cfg, failures)
     graphs = _graphs(sched)[0]
-    _, w, r, now, _ = _serve_stream(sched, "H", "replay", cfg, failures,
-                                    now=100.0)
+    _, w, r, now, _, _ = _serve_stream(sched, "H", "replay", cfg, failures,
+                                       now=100.0)
     out["stream:H"] = (w, r)
     eager = {k: n for k, n in w.items() if n and k not in (
         "flash_attention", "flash_attention/tf32x3")}
@@ -1715,8 +2056,8 @@ def phase_stream(failures, cfg, modules):
     torch.cuda.empty_cache()
 
     oracle = _stream_scheduler(modules, "H", dev, packed=False)
-    done, *_, got = _serve_stream(oracle, "H", "per-group", cfg, failures,
-                                  expected=False)
+    done, *_, got, _ = _serve_stream(oracle, "H", "per-group", cfg,
+                                     failures, expected=False)
     want = dict(STREAM_EXPECTED["H"])
     differ = sorted(k for k in want if got[k] != want[k])
     if not set(differ) <= {"launches", "pack_rows", "pack_pad_rows",
@@ -1738,14 +2079,364 @@ def phase_stream(failures, cfg, modules):
     torch.cuda.empty_cache()
 
     sched = _stream_scheduler(modules, "O", dev)
-    _, w, r, _, _ = _serve_stream(sched, "O", "capture", cfg, failures)
+    _, w, r, _, _, _ = _serve_stream(sched, "O", "capture", cfg, failures)
     out["stream:O"] = (w, r)
     log(f"[stream:O] faults injected {sched.faults.injected} over "
         f"{sched.faults.queries} queries")
     del sched
     gc.collect()
     torch.cuda.empty_cache()
+    out["stream:C"], cap, plain = _stream_cache(failures, cfg, modules,
+                                                dev)
+    _stream_cache_f32(failures, cfg, modules, dev, cap, plain)
     return out
+
+
+def _same_images(a, b):
+    """Whether two passes' records carry bitwise equal images, record for
+    record, and the largest difference."""
+    import numpy as np
+    same = len(a) == len(b) and all(
+        x.prompt == y.prompt and np.array_equal(x.image, y.image)
+        for x, y in zip(a, b))
+    err = max(float(np.abs(x.image - y.image).max()) for x, y in zip(a, b))
+    return same, err
+
+
+def _groups_err(a, b, skip=()):
+    """{group within the pass: largest image difference} of two passes of
+    trace C with the same groups (records, each pass from its first gid
+    on), the groups in ``skip`` left out."""
+    import numpy as np
+    g0 = min(c.group_id for c in a)
+    p0 = min(c.group_id for c in b)
+    mine, other = {}, {}
+    for c in a:
+        if c.group_id - g0 not in skip:
+            mine.setdefault(c.group_id - g0, []).append(c.image)
+    for c in b:
+        other.setdefault(c.group_id - p0, []).append(c.image)
+    return {g: max(float(np.abs(x - y).max())
+                   for x, y in zip(imgs, other[g]))
+            for g, imgs in sorted(mine.items())}
+
+
+def _kept_groups_err(cached, plain):
+    """The groups that computed their own shared phase in a cached pass
+    and in a pass without a cache (records of two passes of trace C, each
+    from its first gid on): {group within the pass: largest image
+    difference}.  With a group's noise a function of its gid, only the
+    packs around them differ."""
+    g0 = min(c.group_id for c in cached)
+    return _groups_err(cached, plain,
+                       {c.group_id - g0 for c in cached if c.cache_hit})
+
+
+def _cache_scheduler(modules, dev):
+    """Trace C's scheduler and its passes: (scheduler, passes, pass_start),
+    where ``passes`` is (label, ``STREAM_EXPECTED`` key, make the pass's
+    trunk cache) for the four passes: scan (the capture pass), LSH, every
+    would-be hit corrupted, none; ``pass_start()`` is called as a pass
+    starts, so that its groups draw the default noise of their gid within
+    the pass and the passes start alike."""
+    from repro_torch.serving.faults import FaultPlan
+    from repro_torch.serving.scheduler import default_noise
+    from repro_torch.serving.trunk_cache import TrunkCache
+
+    cfg = modules[0].cfg
+    kw = cache_kwargs("C", cfg.latent_size, cfg.latent_channels)
+    base = [0]
+    sched = _stream_scheduler(modules, "C", dev, noise_fn=lambda gid, s:
+                              default_noise(0, gid - base[0], s))
+    passes = (("capture", "C", lambda: TrunkCache(**kw)),
+              ("replay, lsh", "C", lambda: TrunkCache(index="lsh", **kw)),
+              ("corrupt", "C:corrupt", lambda: TrunkCache(
+                  faults=FaultPlan(seed=0, p_cache_corrupt=1.0), **kw)),
+              ("no cache", "C:nocache", lambda: None))
+
+    def pass_start():
+        base[0] = sched._next_gid
+    return sched, passes, pass_start
+
+
+def _expected_outcome(expect, ticks0):
+    """``STREAM_EXPECTED[expect]``, for a later pass on a scheduler (one
+    starting at tick ``ticks0`` > 0) without the tier and shape ledgers,
+    which accumulate."""
+    want = dict(STREAM_EXPECTED[expect])
+    if ticks0:
+        want.pop("tiers", None)
+        want.pop("shapes", None)
+    return want
+
+
+def _outcome_failures(sched, done, cfg, ticks0, stats0, expect, label):
+    """A pass's outcome against ``_expected_outcome``: [failure] or []."""
+    got = stream_outcome(sched, done, cfg.latent_size, ticks0,
+                         stats0 if ticks0 else None)
+    want = _expected_outcome(expect, ticks0)
+    diff = sorted(k for k in want if got.get(k) != want[k])
+    return [f"{label}: outcome differs from STREAM_EXPECTED[{expect!r}] "
+            f"in {diff}"] if diff else []
+
+
+def _drive_cache_passes(modules, dev, failures, tag, labels=None):
+    """Trace C's passes (``_cache_scheduler``; those in ``labels``, or all)
+    on one scheduler, without the stream phase's measurements, each
+    outcome held to its ``STREAM_EXPECTED`` entry: {label: records}."""
+    sched, passes, pass_start = _cache_scheduler(modules, dev)
+    cfg = modules[0].cfg
+    out, now = {}, 0.0
+    for label, expect, make in passes:
+        if labels is not None and label not in labels:
+            continue
+        sched.trunk_cache = make()
+        pass_start()
+        ticks0, stats0 = sched.ticks, dict(sched.stats)
+        out[label], now = drive_stream(sched, "C", cfg.latent_size,
+                                       cfg.latent_channels, now)
+        now += 100.0
+        failures.extend(_outcome_failures(
+            sched, out[label], cfg, ticks0, stats0, expect,
+            f"stream C {label} ({tag})"))
+    return out
+
+
+def trace_c_stacks(failures):
+    """Trace C's four passes at ``sage-dit`` smoke size on the CPU (f32,
+    the plain versions), recorded (``record_stacks``): every
+    (rows, per-row t, per-row t_next) stack the passes hand ``ddim_step``.
+    The packs, and so each row's steps, do not depend on the width (each
+    outcome must equal its ``STREAM_EXPECTED`` entry, as at full width), so
+    these are the steps of the full-width stacks, which the card cannot
+    read inside a graph capture."""
+    import torch
+    from repro_torch.config import get_config, replace
+    from repro_torch.models.text_encoder import text_cfg
+    cfg = replace(get_config("sage-dit", smoke=True), dtype="float32")
+    tc = replace(text_cfg(dim=cfg.cond_dim, layers=2), attn_impl="kernel")
+    mods = _build_modules(cfg, tc, torch.device("cpu"), torch.float32)
+    with record_stacks() as seen:
+        _drive_cache_passes(mods, torch.device("cpu"), failures,
+                            "smoke, cpu")
+    return {(shape[0], t, tn) for shape, _, _, t, tn in seen["ddim"]}
+
+
+def _trace_c_stack_checks(failures, card, steps, dev,
+                          ddim_dtypes=("float32", "bfloat16")):
+    """``ddim_step`` and flash attention against their plain versions on
+    every stack trace C handed them at full width (``card``: the
+    ``record_stacks`` sets of the four passes on the card), in f32 and
+    bf16; the row counts must agree between the card's record and
+    ``steps``.  ``ddim_step``: each row count's stacks at the rows'
+    recorded steps (``steps``: ``trace_c_stacks``), clip 3 and 0,
+    bitwise against the plain version at the kernel's rounding points:
+    ``ref.py`` itself in f32; in bf16 ``ref.py`` on the f32 values of the
+    same inputs, rounded once to bf16, since the kernel, like the TPU
+    kernel (``src/repro/kernels/ddim_step/ddim_step.py:44-48``), combines
+    eps in f32, where ``ref.py`` rounds it to bf16 before the division by
+    a_t.  The distance from ``ref.py`` in bf16 is printed beside its TOL,
+    a report: at t = 1000 the cosine schedule's a_t is 1e-4, which
+    multiplies that one rounding 1e4 times.  Flash: each recorded (q, k)
+    shape at TOL.  On the CPU, where the wrapper is ``ref.py`` itself,
+    only f32 holds the bitwise check: pass ``ddim_dtypes=("float32",)``."""
+    import torch
+    from repro_torch.core.schedule import make_schedule
+    from repro_torch.kernels.ddim_step.ops import fused_cfg_ddim_step
+    from repro_torch.kernels.ddim_step.ref import fused_cfg_ddim_step_ref
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    gen = torch.Generator(device=dev).manual_seed(20)
+    sched = make_schedule(1000, device=dev)
+    shapes, by_rows = {}, {}
+    for shape, zdt, edt, _, _ in card["ddim"]:
+        shapes.setdefault(shape[0], set()).add((shape, f"{zdt}/{edt}"))
+    for rows, t, tn in steps:
+        by_rows.setdefault(rows, []).append((t, tn))
+    if set(shapes) != set(by_rows):
+        failures.append(f"stream C: ddim_step row counts on the card "
+                        f"{sorted(shapes)} but {sorted(by_rows)} at smoke "
+                        f"size")
+    for rows in sorted(set(shapes) & set(by_rows)):
+        for shape, path_dtypes in sorted(shapes[rows]):
+            for dn in ddim_dtypes:
+                dtype = getattr(torch, dn)
+                z, eu, ec = (torch.randn(shape, device=dev, generator=gen,
+                                         dtype=dtype) for _ in range(3))
+                err = ref_err = ref_worst = 0.0
+                for t, tn in sorted(by_rows[rows]):
+                    t, tn = (torch.tensor(x, device=dev) for x in (t, tn))
+                    for clip in (3.0, 0.0):
+                        tail = (7.5, sched.alphas, sched.sigmas, t, tn)
+                        got = fused_cfg_ddim_step(z, eu, ec, *tail,
+                                                  clip_x0=clip)
+                        want = fused_cfg_ddim_step_ref(
+                            z.float(), eu.float(), ec.float(), *tail,
+                            clip_x0=clip).to(dtype)
+                        err = max(err, (got.float() - want.float()).abs()
+                                  .max().item())
+                        e, w = _err_worst("ddim_step", dn, got,
+                                          fused_cfg_ddim_step_ref(
+                                              z, eu, ec, *tail,
+                                              clip_x0=clip))
+                        ref_err, ref_worst = max(ref_err, e), max(ref_worst,
+                                                                  w)
+                ok = err == 0.0
+                report = "" if dtype == torch.float32 else (
+                    f"; against ref.py in bf16 max_abs_err={ref_err:.3e} "
+                    f"tol={TOL[('ddim_step', dn)]:g} worst={ref_worst:.3f} "
+                    f"(a report)")
+                log(f"[check] ddim_step       stream C {shape} x "
+                    f"{len(by_rows[rows])} stacks of per-row steps, clip 3 "
+                    f"and 0 (path {path_dtypes}) {dn:8s} max_abs_err="
+                    f"{err:.3e} bitwise {'ok' if ok else 'FAIL'}{report}")
+                if not ok:
+                    failures.append(f"ddim_step stream C {shape} {dn}: "
+                                    f"error {err:.3e}, not bitwise the "
+                                    f"plain version's")
+    for qs, ks, path_dtype, causal, window in sorted(card["flash"]):
+        for dn in ("float32", "bfloat16"):
+            dtype = getattr(torch, dn)
+            q = torch.randn(qs, device=dev, generator=gen, dtype=dtype)
+            k, v = (torch.randn(ks, device=dev, generator=gen, dtype=dtype)
+                    for _ in range(2))
+            kw = dict(causal=causal, window=window,
+                      scale=1.0 / math.sqrt(qs[-1]))
+            _check(failures, "flash_attention",
+                   f"stream C {qs[0]}x{qs[1]}x{ks[1]} h{qs[2]} d{qs[3]}"
+                   f"{' causal' if causal else ''}", dn,
+                   flash_attention(q, k, v, **kw),
+                   attention_ref(q, k, v, **kw), f"(path {path_dtype})")
+    torch.cuda.empty_cache()
+
+
+def _stream_cache(failures, cfg, modules, dev):
+    """Trace C on one scheduler in four passes (``_cache_scheduler``), each
+    with its own trunk cache: scan (the capture pass), LSH (replayed: no
+    new graph), every would-be hit corrupted, none.  Checks: each outcome
+    its ``STREAM_EXPECTED`` entry; LSH images bitwise those of scan; the
+    corrupt pass's bitwise those of the pass without a cache, with as many
+    integrity drops as injections; NFE conserved (no cache = cached +
+    saved); a 2-D grid in at least one served pack; every stored entry
+    ``trunk_entry_bytes`` of the latent and on the card; then
+    ``ddim_step`` and flash on every stack the passes handed them
+    (``_trace_c_stack_checks``).  Returns the four passes' launches (by the
+    wrappers, by graph replays), and the capture and no-cache passes'
+    records."""
+    import torch
+
+    shape = (cfg.latent_size, cfg.latent_size, cfg.latent_channels)
+    sched, passes, pass_start = _cache_scheduler(modules, dev)
+    res, launches, now = {}, [], 0.0
+    with record_stacks() as card:
+        for label, expect, make in passes:
+            sched.trunk_cache = make()
+            pass_start()
+            graphs = _graphs(sched)[0]
+            done, w, r, now, got, grids = _serve_stream(
+                sched, "C", label, cfg, failures, now=now, expect=expect)
+            now += 100.0
+            launches.append((w, r))
+            res[label] = (done, got, grids, sched.trunk_cache)
+            tc = sched.trunk_cache
+            if tc is not None:
+                log(f"[stream:C:{label}] cache {tc.index.name}: "
+                    f"{got['cache']}; bytes {tc.bytes} (device "
+                    f"{tc.tier_bytes['hbm']}, host {tc.tier_bytes['host']})"
+                    f" budgets {tc.max_bytes} / {tc.host_bytes}; entry "
+                    f"bytes {sorted({e.nbytes for e in tc._entries.values()})}"
+                    f" (trunk_entry_bytes {trunk_entry_bytes(shape)}) on "
+                    f"{sorted({str(e.device) for e in tc._entries.values()})}")
+                if any(e.nbytes != trunk_entry_bytes(shape)
+                       or e.device.type != "cuda"
+                       for e in tc._entries.values()):
+                    failures.append(f"stream C {label}: an entry is not "
+                                    f"{trunk_entry_bytes(shape)} bytes on "
+                                    f"the card")
+            if label == "replay, lsh":
+                eager = {k: n for k, n in w.items() if n and k not in (
+                    "flash_attention", "flash_attention/tf32x3")}
+                if _graphs(sched)[0] != graphs or eager:
+                    failures.append(f"stream C replay: the pass captured "
+                                    f"new graphs or launched {eager} "
+                                    f"outside them")
+    cap, cached, cap_grids, _ = res["capture"]
+    lsh = res["replay, lsh"][0]
+    bad, _, _, bad_cache = res["corrupt"]
+    plain, nocache, plain_grids, _ = res["no cache"]
+    same_lsh, err_lsh = _same_images(lsh, cap)
+    same_bad, err_bad = _same_images(bad, plain)
+    err_kept = _kept_groups_err(cap, plain)
+    injected = bad_cache.faults.injected["cache_corrupt"]
+    drops = bad_cache.stats["integrity_drops"]
+    saved = cached["cache"]["nfe_saved"]
+    log(f"[stream:C] lsh images {'bitwise equal' if same_lsh else 'DIFFER'}"
+        f" to scan's (max {err_lsh:.3e}); corrupt pass "
+        f"{'bitwise equal' if same_bad else 'DIFFERS'} to the pass without "
+        f"a cache (max {err_bad:.3e}), integrity_drops={drops} injected="
+        f"{injected}; nfe {cached['nfe']:g} cached + {saved:g} saved = "
+        f"{nocache['nfe']:g} without; packs with a 2-D grid {cap_grids} "
+        f"cached, {plain_grids} without; the groups computed in both "
+        f"passes differ by {err_kept} (a report: their packs differ; the "
+        f"f32 passes below and the reference phase check them)")
+    if not (same_lsh and same_bad and drops == injected > 0
+            and cached["nfe"] + saved == nocache["nfe"] and cap_grids >= 1):
+        failures.append(f"stream C: lsh bitwise {same_lsh}, corrupt "
+                        f"bitwise {same_bad}, drops {drops} / injected "
+                        f"{injected}, nfe {cached['nfe']} + {saved} vs "
+                        f"{nocache['nfe']}, 2-D packs {cap_grids}")
+    log(f"[stream:C] stacks handed to the kernels in the four passes: "
+        f"ddim_step {sorted(card['ddim'])}; flash "
+        f"{sorted(card['flash'])}")
+    del sched, res
+    gc.collect()
+    torch.cuda.empty_cache()
+    _trace_c_stack_checks(failures, card, trace_c_stacks(failures), dev)
+    return ((_summed(*(w for w, _ in launches)),
+             _summed(*(r for _, r in launches))), cap, plain)
+
+
+def _stream_cache_f32(failures, cfg, modules, dev, cap, plain):
+    """Trace C's capture (scan) and no-cache passes again at full width
+    with the DiT and the VAE in f32: the same weights, noise and packs as
+    the bf16 passes (``cap``, ``plain``: their records).  The groups that
+    computed their own shared phase in both f32 passes must agree within
+    1e-3, the end-to-end tolerance: at full width, on the kernels, a
+    group's image does not depend on the packs it rides but for rounding.
+    Printed beside it: each group's distance between its bf16 and its f32
+    image in the same pass, the size of bf16's rounding after the steps."""
+    import torch
+    from repro_torch.config import replace
+    from repro_torch.models.dit import DiT
+    from repro_torch.models.vae import VAEDecoder
+
+    cfg32 = replace(cfg, dtype="float32")
+    dit = DiT(cfg32, device=dev)
+    dit.load_state_dict(modules[0].state_dict())
+    vae = VAEDecoder(device=dev, dtype=torch.float32)
+    vae.load_state_dict(modules[2].state_dict())
+    t0 = time.perf_counter()
+    out = _drive_cache_passes((dit, modules[1], vae), dev, failures, "f32",
+                              ("capture", "no cache"))
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    kept = _kept_groups_err(out["capture"], out["no cache"])
+    bf16_cap = _groups_err(cap, out["capture"])
+    bf16_plain = _groups_err(plain, out["no cache"])
+    ok = max(kept.values()) <= 1e-3
+    log(f"[stream:C:f32] the capture and no-cache passes with the DiT and "
+        f"VAE in f32 ({wall:.3f} s, graphs captured included): the groups "
+        f"computed in both passes differ by {kept} tol=1e-3 "
+        f"{'ok' if ok else 'FAIL'}; bf16 against f32 by group, capture "
+        f"pass {bf16_cap}, no-cache pass {bf16_plain}")
+    if not ok:
+        failures.append(f"stream C f32: a group's image moved with its "
+                        f"packs: {kept}")
+    del out, dit, vae
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 # kernel nodes a step of each path's segments saves against the parent
@@ -2320,6 +3011,8 @@ def phase_mamba2(failures):
                             f"{err32:.3e} ({1e-3 * top:.3e})")
         del ind, ind32, sh32
 
+    cached = _mamba2_cached_prefix(failures, model, groups, max_len)
+
     prompt = groups[0][:1, :prefix]
     _reset_counts(counters)
     rows = _profile("mamba2 trunk prefill 1x1024",
@@ -2337,6 +3030,131 @@ def phase_mamba2(failures):
     del model, trunk, cache0, decode
     gc.collect()
     torch.cuda.empty_cache()
+    return {"mamba2": (wrappers, replayed), "mamba2:cache": cached}
+
+
+def _host_ms(fn, reps=3):
+    """Host milliseconds of ``fn()`` between device syncs, the least of
+    ``reps`` runs (for copies and CRCs on the host, which no graph can
+    hold)."""
+    import torch
+    best = float("inf")
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        best = min(best, time.perf_counter() - t0)
+    return best * 1e3
+
+
+def _mamba2_cached_prefix(failures, model, groups, max_len):
+    """``cached_prefix_prefill`` over the shared-prefix groups in the order
+    g0, g1, g0, g1 through one ``TrunkCache`` whose budgets are one payload
+    on the device and two on the host (a payload: the trunk prefill's
+    logits and state cache, by ``cache_bytes``): miss, miss with a spill,
+    then a host hit with its promotion (and a spill) twice.  A hit must
+    launch no ``ssd_scan``, count only the tails' token steps, and give
+    logits and caches bitwise those of the group's miss.  Printed: each
+    call's wall with its prefill, lookup and insert milliseconds (each
+    between device syncs), and the CRC, spill and promotion milliseconds
+    of one payload.  Returns the run's launches (by the wrappers, by graph
+    replays)."""
+    import numpy as np
+    import torch
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serving.faults import _sorted_leaves, array_crc
+    from repro_torch.serving.kvcache import cache_bytes
+    from repro_torch.serving.shared_prefill import cached_prefix_prefill
+    from repro_torch.serving.trunk_cache import (TrunkCache, _to_device,
+                                                 _to_host)
+
+    dev = model.device
+    prefix = PATHS["mamba2"]["prompt_len"]
+    payload = tfm.prefill(model, groups[0][:1, :prefix], max_len=max_len)
+    one = cache_bytes(payload)
+    cache = TrunkCache(tau_trunk=0.9, max_bytes=one, host_bytes=2 * one)
+    cents = np.random.RandomState(3).randn(len(groups), 64)
+    spent = {"prefill": 0.0, "lookup": 0.0, "insert": 0.0}
+
+    def timed(name, fn):
+        def call(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            spent[name] += time.perf_counter() - t0
+            return out
+        return call
+    cache.lookup = timed("lookup", cache.lookup)
+    cache.insert = timed("insert", cache.insert)
+    prefill = timed("prefill", lambda t, m: tfm.prefill(model, t, max_len=m))
+    counters = _counters()
+    ssd = counters["ssd_scan"]
+    first, calls = {}, []
+    _reset_counts(counters)
+    for g in (0, 1, 0, 1):
+        before, stats0 = ssd.launches, dict(cache.stats)
+        spent0 = dict(spent)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches, _, st = cached_prefix_prefill(
+            prefill, lambda c, t, p: tfm.decode_step(model, c, t, p),
+            groups[g], max_len, cache=cache, centroid=cents[g])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = ssd.launches - before
+        moved = {k: cache.stats[k] - stats0[k] for k in cache.stats
+                 if cache.stats[k] != stats0[k]}
+        hit = st["trunk_cache_hit"]
+        same = ""
+        if hit:
+            f_logits, f_caches = first[g]
+            same = torch.equal(logits, f_logits) and all(
+                torch.equal(a, b) for a, b in zip(_sorted_leaves(caches),
+                                                  _sorted_leaves(f_caches)))
+            if not same:
+                failures.append(f"mamba2 cached prefix group {g}: the hit's "
+                                f"logits or caches differ from the miss's")
+        else:
+            first[g] = (logits, caches)
+        want = (0 if hit else model.cfg.n_layers,
+                _expected_steps(groups[g])["token_steps"]
+                - (prefix if hit else 0))
+        calls.append((hit, wall))
+        ms = {k: round((spent[k] - spent0[k]) * 1e3, 3) for k in spent}
+        log(f"[e2e:mamba2:cache] group {g}: hit={hit} wall_s={wall:.4f} "
+            f"(of which ms {ms}; the rest the fork and the eager catch-up) "
+            f"ssd_launches={n} token_steps={st['token_steps']} (expected "
+            f"{want[1]}) cache {moved}"
+            + (f"; logits and caches {'bitwise equal' if same else 'DIFFER'}"
+               f" to the miss's" if hit else ""))
+        if (n, st["token_steps"]) != want:
+            failures.append(f"mamba2 cached prefix group {g}: {n} ssd_scan "
+                            f"launches, {st['token_steps']} token steps; "
+                            f"want {want}")
+    wrappers, replayed = _ran()
+    got = (cache.stats["misses"], cache.stats["hits_host"],
+           cache.stats["spills"], cache.stats["promotions"])
+    if got != (2, 2, 3, 2) or [h for h, _ in calls] != [False, False, True,
+                                                        True]:
+        failures.append(f"mamba2 cached prefix: misses / host hits / spills "
+                        f"/ promotions {got}, want (2, 2, 3, 2)")
+    _check_path_kernels("mamba2:cache", _summed(wrappers, replayed),
+                        failures)
+    crc_ms = _host_ms(lambda: array_crc(payload))
+    host = _to_host(payload)
+    spill_ms = _host_ms(lambda: _to_host(payload))
+    promote_ms = _host_ms(lambda: _to_device(host, dev))
+    miss = np.mean([w for h, w in calls if not h])
+    hit = np.mean([w for h, w in calls if h])
+    log(f"[e2e:mamba2:cache] payload {one / 2 ** 20:.2f} MiB ("
+        f"{len(list(_sorted_leaves(payload)))} tensors); crc_ms="
+        f"{crc_ms:.3f} spill_ms={spill_ms:.3f} promote_ms={promote_ms:.3f} "
+        f"(host clock, least of 3); a call's wall: miss {miss:.4f} s, hit "
+        f"{hit:.4f} s (hit/miss {hit / miss:.3f}: a hit skips the 1 x "
+        f"{prefix} prefill and pays a CRC, a promotion and a spill)")
+    del payload, host, cache, first
     return wrappers, replayed
 
 
@@ -2428,7 +3246,8 @@ def phase_reference(failures):
                                    cfg.latent_channels)
             out.append((stream_outcome(s, done, cfg.latent_size), done))
         (gpu, gdone), (cpu, cdone) = out
-        fields = ("prompt", "group_id", "nfe_share", "latency", "status")
+        fields = ("prompt", "group_id", "nfe_share", "latency", "status",
+                  "cache_hit")
         same = (gpu == cpu == STREAM_EXPECTED[trace]
                 and [[getattr(c, f) for f in fields] for c in gdone]
                 == [[getattr(c, f) for f in fields] for c in cdone])
@@ -2445,6 +3264,20 @@ def phase_reference(failures):
         if not ok:
             failures.append(f"reference stream {trace}: card vs cpu differ "
                             f"(same={same}, err={err:.3e})")
+        if "cache" in STREAM_TRACES[trace]:
+            s = _stream_scheduler(gpu_mods, trace, torch.device("cuda:0"),
+                                  trunk_cache=None)
+            plain, _ = drive_stream(s, trace, cfg.latent_size,
+                                    cfg.latent_channels)
+            errs = _kept_groups_err(gdone, plain)
+            ok = max(errs.values()) <= 1e-3
+            log(f"[reference:stream:{trace}] the groups that computed "
+                f"their own shared phase, cached pass vs a pass without a "
+                f"cache on the card: max_abs_err by group {errs} tol=1e-3 "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                failures.append(f"reference stream {trace}: a group's image "
+                                f"moved with the cache elsewhere: {errs}")
     _reference_mamba2(failures)
 
 
@@ -2540,7 +3373,7 @@ def main(argv) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     t4 = time.perf_counter()
-    launches["mamba2"] = phase_mamba2(failures)
+    launches.update(phase_mamba2(failures))
     t5 = time.perf_counter()
     phase_reference(failures)
     t6 = time.perf_counter()

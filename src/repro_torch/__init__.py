@@ -10,6 +10,7 @@ kernels on the CPU.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -22,3 +23,11 @@ def resolve_device(device="cuda") -> torch.device:
             f"device {device!r} requested but torch.cuda.is_available() is "
             f"False; pass device='cpu' to run the plain PyTorch path")
     return dev
+
+
+def seeded_generator(seed: int, k: int) -> torch.Generator:
+    """A CPU generator seeded from the pair ``(seed, k)`` alone.  The
+    generator keeps 32 bits of its seed, so the pair is mixed through
+    ``numpy.random.SeedSequence`` first."""
+    return torch.Generator().manual_seed(int(np.random.SeedSequence(
+        [seed & 0xFFFFFFFFFFFFFFFF, k]).generate_state(1)[0]))

@@ -9,8 +9,8 @@ Request lifecycle:
 runners (CUDA graphs on a CUDA device) live on the scheduler and go with
 the engine.  The text tower and the VAE decoder run eagerly, once per
 batch.  For arrival-driven serving (ticks, QoS, admission, faults,
-per-request shape / tier / sampler), drive a scheduler of
-:meth:`SageServingEngine.streaming_scheduler` directly.
+per-request shape / tier / sampler, the cross-batch trunk cache), drive a
+scheduler of :meth:`SageServingEngine.streaming_scheduler` directly.
 """
 from __future__ import annotations
 
@@ -25,6 +25,7 @@ from repro_torch.models.vae import VAEDecoder
 from repro_torch.serving.policies import LaunchPolicy
 from repro_torch.serving.scheduler import (Completed, NoiseFn,
                                            RequestScheduler)
+from repro_torch.serving.trunk_cache import TrunkCache
 
 __all__ = ["Completed", "SageServingEngine"]
 
@@ -79,13 +80,15 @@ class SageServingEngine:
 
     def streaming_scheduler(self, slice_steps: int = 4,
                             max_wait_ticks: int = 2,
+                            trunk_cache: Optional[TrunkCache] = None,
                             **kw) -> RequestScheduler:
         """A fresh streaming scheduler on this engine's modules, routes,
-        device (unless ``device=`` says otherwise) and ``noise_fn``; the
-        engine's own scheduler and stats are untouched.  The streaming knobs of :class:`RequestScheduler`
-        (``packed``, ``tiers``, ``mix_samplers``, QoS, admission, faults)
-        go through ``**kw``; per-request shape / tier / sampler are chosen
-        at ``submit()``."""
+        device (unless ``device=`` says otherwise) and ``noise_fn``, with an
+        optional cross-batch ``trunk_cache``; the engine's own scheduler
+        and stats are untouched.  The streaming knobs of
+        :class:`RequestScheduler` (``packed``, ``tiers``, ``mix_samplers``,
+        QoS, admission, faults) go through ``**kw``; per-request shape /
+        tier / sampler are chosen at ``submit()``."""
         kw.setdefault("seed", self.seed)
         kw.setdefault("policy", self.policy)
         kw.setdefault("noise_fn", self.noise_fn)
@@ -94,7 +97,7 @@ class SageServingEngine:
             self.sage, *self.modules, sched=self.sched,
             group_size=self.group_size, branch_buckets=self.branch_buckets,
             slice_steps=slice_steps, max_wait_ticks=max_wait_ticks,
-            attn_impl=self.attn_impl, **kw)
+            trunk_cache=trunk_cache, attn_impl=self.attn_impl, **kw)
 
     @property
     def stats(self):

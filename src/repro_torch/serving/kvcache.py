@@ -67,4 +67,7 @@ def select_rows(cache: Any, idx) -> Any:
 
 
 def cache_bytes(cache: Any) -> int:
-    return sum(x.numel() * x.element_size() for x in _leaves(cache))
+    """Bytes of a tree's tensor leaves (``None`` and other leaves hold
+    none)."""
+    return sum(x.numel() * x.element_size() for x in _leaves(cache)
+               if isinstance(x, torch.Tensor))

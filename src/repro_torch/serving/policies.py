@@ -1,8 +1,7 @@
 """Admission and launch policies: WHEN work enters the streaming scheduler.
 
 The port's copy of the JAX package's ``serving/policies.py`` (pure Python;
-the port imports nothing of that package), without the trunk cache's
-admission, which comes with the trunk-cache slice.
+the port imports nothing of that package).
 
 * :class:`LaunchPolicy` — which *open* groups launch this tick, and in
   what order.  :class:`EagerPolicy` launches a group the moment it is full,
@@ -15,6 +14,11 @@ admission, which comes with the trunk-cache slice.
   ``max_groups_per_tick`` cap: ``fifo``, ``edf`` and ``qos_edf``.
 * :class:`AdmissionPolicy` — the per-request overload verdict (admit, shed
   or degrade) from a saturation estimate.
+* :class:`CacheAdmission` — whether a completed trunk earns bytes in the
+  :class:`~repro_torch.serving.trunk_cache.TrunkCache` and which entry a
+  tier's byte budget demotes or evicts first: :class:`AdmitAll` (store
+  everything, LRU) or :class:`PopularityAdmission` (store keys asked for
+  ``threshold`` times, evict the coldest).
 
 Policies see the scheduler only through :class:`LaunchContext` and
 :class:`AdmissionContext`.  Invariants every launch policy keeps: it
@@ -334,4 +338,110 @@ def make_admission_policy(spec: Union[str, AdmissionPolicy, None],
             raise ValueError(f"unknown admission policy {spec!r}; "
                              f"have {sorted(_ADMISSION_POLICIES)}")
         return _ADMISSION_POLICIES[spec](**kw)
+    return spec
+
+
+# -- trunk-cache admission ---------------------------------------------------
+
+@runtime_checkable
+class CacheAdmission(Protocol):
+    """Store / evict policy of :class:`~repro_torch.serving.trunk_cache.
+    TrunkCache`.
+
+    ``on_lookup`` is called once per cache lookup with the requester's
+    quantized key, on the exact-key path and the similarity path alike,
+    hit or miss, so popularity counts measure demand, not residency.
+    ``admit`` gates ``insert``; ``victim`` picks the key the pressured tier
+    demotes or evicts first (``keys`` are that tier's residents, LRU to
+    MRU; ``tier`` names it: ``"hbm"`` victims spill to the host tier when
+    there is one, ``"host"`` victims leave the cache).
+    """
+
+    name: str
+
+    def on_lookup(self, key: Tuple) -> None: ...
+
+    def admit(self, key: Tuple) -> bool: ...
+
+    def victim(self, keys: Sequence[Tuple],
+               tier: str = "") -> Optional[Tuple]: ...
+
+
+class AdmitAll:
+    """Store every completed trunk; the coldest resident of the tier under
+    pressure spills or leaves first (plain LRU, tier-blind)."""
+
+    name = "always"
+
+    def on_lookup(self, key: Tuple) -> None:
+        pass
+
+    def admit(self, key: Tuple) -> bool:
+        return True
+
+    def victim(self, keys: Sequence[Tuple],
+               tier: str = "") -> Optional[Tuple]:
+        for k in keys:                      # first = least recently used
+            return k
+        return None
+
+
+class PopularityAdmission:
+    """Store only trunks whose quantized-centroid key has been asked for at
+    least ``threshold`` times; evict the coldest first.
+
+    The count is demand-side (every ``TrunkCache.lookup`` ticks the
+    requester's key), so a theme must recur before its trunk earns bytes.
+    The victim is the resident key with the lowest count, ties broken LRU
+    first.  Counts survive eviction and tier moves (they measure the
+    stream, not the cache); ``tier`` is accepted for the protocol but the
+    signal is tier-blind.  Past ``max_keys`` counters the coldest half is
+    dropped, so a long-lived server's counter state stays bounded.
+    """
+
+    def __init__(self, threshold: int = 2, max_keys: int = 65_536):
+        if threshold < 1:
+            raise ValueError(f"threshold must be >= 1, got {threshold}")
+        self.threshold = threshold
+        self.max_keys = max_keys
+        self.counts: Dict[Tuple, int] = {}
+
+    name = "popularity"
+
+    def on_lookup(self, key: Tuple) -> None:
+        self.counts[key] = self.counts.get(key, 0) + 1
+        if len(self.counts) > self.max_keys:
+            keep = sorted(self.counts.items(), key=lambda kv: -kv[1])
+            self.counts = dict(keep[:self.max_keys // 2])
+
+    def admit(self, key: Tuple) -> bool:
+        return self.counts.get(key, 0) >= self.threshold
+
+    def victim(self, keys: Sequence[Tuple],
+               tier: str = "") -> Optional[Tuple]:
+        best, best_count = None, None
+        for k in keys:                      # LRU -> MRU: ties stay LRU
+            c = self.counts.get(k, 0)
+            if best is None or c < best_count:
+                best, best_count = k, c
+        return best
+
+
+_CACHE_ADMISSIONS: Dict[str, Callable[..., CacheAdmission]] = {
+    "always": AdmitAll,
+    "popularity": PopularityAdmission,
+}
+
+
+def make_cache_admission(spec: Union[str, CacheAdmission, None],
+                         **kw) -> CacheAdmission:
+    """Resolve a cache admission name (``"always"`` / ``"popularity"``) or
+    pass an instance through; ``kw`` goes to the named constructor."""
+    if spec is None:
+        return AdmitAll()
+    if isinstance(spec, str):
+        if spec not in _CACHE_ADMISSIONS:
+            raise ValueError(f"unknown cache admission {spec!r}; "
+                             f"have {sorted(_CACHE_ADMISSIONS)}")
+        return _CACHE_ADMISSIONS[spec](**kw)
     return spec

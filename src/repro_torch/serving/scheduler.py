@@ -1,8 +1,8 @@
 """Request scheduler: the streaming tick loop and the synchronous batch.
 
-The port of the JAX package's ``serving/scheduler.py`` without its trunk
-cache and telemetry.  The serving loop runs as repeated **ticks** over
-in-flight groups:
+The port of the JAX package's ``serving/scheduler.py`` without its
+telemetry.  The serving loop runs as repeated **ticks** over in-flight
+groups:
 
 * **admission** — arriving requests (``submit``) pass the admission policy
   (``serving.policies``: shed or degrade past a saturation estimate; a
@@ -20,6 +20,11 @@ in-flight groups:
   ``max_groups_per_tick`` cap the slots go to starving groups, then
   deadline-at-risk ones (preemption: displaced groups simply do not
   advance), then by weighted-fair round-robin over the QoS classes;
+* **trunk cache** — with a :class:`~repro_torch.serving.trunk_cache.
+  TrunkCache`, a newly launched group whose centroid hits the cache skips
+  its shared phase and forks straight into branching from the cached
+  branch-point latent (its saved NFE in ``nfe_saved_cache``); a group that
+  computes its shared phase stores the trunk at its fork;
 * **faults** — an optional ``serving.faults.FaultPlan`` fails launches
   (the carry is untouched; the group retries with exponential backoff,
   and is shed with its NFE moved to ``nfe_wasted`` after ``max_retries``)
@@ -37,7 +42,7 @@ row by row.
 :meth:`run_batch` (what ``SageServingEngine.step()`` calls) is the
 synchronous special case: greedy-clique grouping over one prompt list,
 phase-aligned packed segments (one stacked launch per phase per drain
-tick), no arrivals, no faults, and the tick counter left alone.
+tick), no arrivals, no cache, no faults, and the tick counter left alone.
 
 Time is injectable: ``submit`` / ``tick`` take ``now`` (a virtual clock of
 one unit a tick, or wall seconds; ``time.monotonic()`` by default).
@@ -54,10 +59,12 @@ once, when the scheduler is built.
 Initial noise: the JAX scheduler draws each group's noise from a threefry
 key folded with the group id, which torch cannot reproduce.  This
 scheduler asks ``noise_fn(gid, shape) -> Tensor`` for it, ``shape`` the
-group's own ``(1, H, W, C)``; the default draws from the scheduler's own
-seeded ``torch.Generator`` (on the CPU, so the noise does not depend on
-the device), and parity tests pass a ``noise_fn`` that returns the
-JAX-drawn noise.
+group's own ``(1, H, W, C)``, and asks nothing on a cache hit.  The
+default, :func:`default_noise`, is a function of ``(seed, gid)`` alone,
+drawn on the CPU (so it does not depend on the device), as the JAX noise
+is of its key and the gid: a group's noise does not depend on which
+groups drew before it or hit the cache.  Parity tests pass a
+``noise_fn`` that returns the JAX-drawn noise.
 """
 from __future__ import annotations
 
@@ -71,7 +78,7 @@ from typing import (Any, Callable, Dict, List, Optional, Sequence, Tuple,
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import resolve_device, seeded_generator
 from repro_torch.config import SageConfig
 from repro_torch.config import replace as config_replace
 from repro_torch.core import grouping
@@ -96,6 +103,7 @@ from repro_torch.serving.policies import (DEFAULT_QOS, DEFAULT_TIER,
                                           make_launch_order,
                                           make_launch_policy)
 from repro_torch.serving.runners import SegmentRunner
+from repro_torch.serving.trunk_cache import TrunkCache, TrunkEntry
 
 NoiseFn = Callable[[int, Tuple[int, ...]], torch.Tensor]
 # a bucket's solver: one name (uniform pack) or one per row (mixed pack)
@@ -107,6 +115,13 @@ def _ratio(num: float, den: float, default: float = 0.0) -> float:
     return num / den if den else default
 
 
+def default_noise(seed: int, gid: int, shape: Tuple[int, ...]
+                  ) -> torch.Tensor:
+    """Group ``gid``'s initial noise: standard normal draws from a CPU
+    generator seeded from ``(seed, gid)`` alone."""
+    return torch.randn(shape, generator=seeded_generator(seed, gid))
+
+
 @dataclass
 class Completed:
     prompt: str
@@ -115,6 +130,7 @@ class Completed:
     group_id: int                 # -1 when refused before grouping
     nfe_share: float
     latency: float = 0.0          # completion time - arrival time
+    cache_hit: bool = False       # trunk came from the cross-batch cache
     qos: str = DEFAULT_QOS
     tier: str = DEFAULT_TIER      # quality tier the request ran at
     status: str = "ok"            # ok | degraded | shed | rejected_expired
@@ -153,6 +169,8 @@ class _Group:
     cbar: Optional[torch.Tensor] = None       # (1, Lc, dc)
     cond_flat: Optional[torch.Tensor] = None  # (N, Lc, dc)
     mask: Optional[torch.Tensor] = None       # (1, N) on the host
+    centroid: Optional[np.ndarray] = None     # mean pooled embedding
+    cache_hit: bool = False
     nfe: float = 0.0
     qos: str = DEFAULT_QOS        # members never mix classes
     degraded: bool = False        # any member admitted via tier downgrade
@@ -190,6 +208,8 @@ class RequestScheduler:
     shares per class under the cap (default interactive 2 : batch 1);
     ``preempt`` lets deadline-at-risk groups claim slots, and
     ``starvation_ticks`` bounds how long any group can be skipped;
+    ``trunk_cache`` a :class:`~repro_torch.serving.trunk_cache.TrunkCache`
+    shared phases are served from and stored into (streaming only);
     ``admission`` is the per-request overload policy (``"shed"`` /
     ``"degrade"`` / an instance); ``faults`` a
     :class:`~repro_torch.serving.faults.FaultPlan`, ``max_retries`` the
@@ -205,6 +225,7 @@ class RequestScheduler:
                  branch_buckets: Sequence[float] = (0.2, 0.3, 0.4),
                  slice_steps: int = 4, max_wait_ticks: int = 2,
                  deadline_slack: float = 0.0,
+                 trunk_cache: Optional[TrunkCache] = None,
                  max_groups_per_tick: Optional[int] = None,
                  packed: bool = True,
                  policy: Union[str, LaunchPolicy, None] = "eager",
@@ -245,6 +266,7 @@ class RequestScheduler:
         self.slice_steps = slice_steps
         self.max_wait_ticks = max_wait_ticks
         self.deadline_slack = deadline_slack
+        self.trunk_cache = trunk_cache
         self.max_groups_per_tick = max_groups_per_tick
         self.packed = packed
         self.policy = make_launch_policy(policy)
@@ -281,9 +303,8 @@ class RequestScheduler:
         if max_retries < 0:
             raise ValueError(f"max_retries must be >= 0, got {max_retries}")
         self.max_retries = max_retries
-        gen = torch.Generator().manual_seed(seed)
         self.noise_fn = noise_fn or (
-            lambda gid, shape: torch.randn(shape, generator=gen))
+            lambda gid, shape: default_noise(seed, gid, shape))
 
         self.arrivals: List[Request] = []      # embedded, awaiting admission
         self.open_groups: List[_Group] = []
@@ -345,6 +366,17 @@ class RequestScheduler:
     def _null_cond(self) -> torch.Tensor:
         return torch.zeros((self.cfg.cond_len, self.cfg.cond_dim),
                            device=self.device)
+
+    def _cfg_key(self, g: _Group) -> Tuple:
+        """Everything but the centroid, beta and shape that must match for
+        a cached trunk to be reusable, per group: its own sampler and step
+        budget ride the key, so a draft-tier or dpmpp trunk never serves a
+        premium or ddim group.  Weights are not hashed: the cache lives
+        inside one scheduler, whose weights are fixed."""
+        s, c = self.sage, self.cfg
+        return (c.name, c.attn_impl, g.sampler, s.step_impl, g.total_steps,
+                round(s.guidance_scale, 6), round(s.clip_x0, 6),
+                s.shared_uncond_cfg, self.sched.T)
 
     # -- segment runners (the JAX scheduler's, keyed the same way) ------
     def _runner_cfg(self, samplers: Samplers
@@ -627,8 +659,10 @@ class RequestScheduler:
     def _launch(self, g: _Group, now: float, adaptive: bool,
                 beta: Optional[float] = None) -> None:
         """Start open group ``g`` (at ``beta``, or its own bucket): c̄, the
-        NFE ledger, initial noise, and the fork right away when nothing is
-        shared; ``g`` moves from the open groups to the in-flight ones."""
+        centroid, the NFE ledger, then either a trunk-cache hit (fork from
+        the cached latent, no noise drawn) or initial noise, and the fork
+        right away when nothing is shared; ``g`` moves from the open groups
+        to the in-flight ones."""
         T = g.total_steps
         g.beta = self._effective_beta(g, adaptive) if beta is None \
             else beta
@@ -638,23 +672,56 @@ class RequestScheduler:
         g.cond_flat = cond
         g.mask = torch.ones((1, N))
         g.cbar = group_mean(cond[None], g.mask)               # (1, Lc, dc)
+        g.centroid = np.mean(np.stack([m.pooled for m in g.members]), 0)
         self.occupancy.append(N / self.group_size)
         self.stats["nfe_independent"] += 2.0 * N * T
-        shape = (1,) + tuple(g.shape)
-        noise = self.noise_fn(g.gid, shape)
-        if tuple(noise.shape) != shape:
-            raise ValueError(f"noise_fn gave {tuple(noise.shape)} for "
-                             f"group {g.gid}, expected {shape}")
-        g.carry = init_carry(noise.to(self.device))
-        if g.n_shared == 0:
-            g.carry = fork_carry(g.carry, N)
+        entry = None
+        if self.trunk_cache is not None and g.n_shared > 0:
+            entry = self.trunk_cache.lookup(
+                g.centroid, g.beta, self._cfg_key(g), g.shape,
+                payload="trunk")
+        if entry is not None:
+            # cross-batch trunk hit: skip the shared phase, fork straight
+            # into branching from the cached branch-point latent (on the
+            # device: a victim policy may have spilled it right back)
+            z = entry.z.to(self.device)
+            step = torch.tensor(entry.step_idx, dtype=torch.long,
+                                device=self.device)
+            g.carry = fork_carry(SampleCarry(z, torch.zeros_like(z), step),
+                                 N)
+            g.steps_done = g.n_shared
             g.state = "branch"
+            g.cache_hit = True
+            self.stats["nfe_saved_cache"] += shared_phase_nfe(1, g.n_shared)
         else:
-            g.state = "shared"
+            shape = (1,) + tuple(g.shape)
+            noise = self.noise_fn(g.gid, shape)
+            if tuple(noise.shape) != shape:
+                raise ValueError(f"noise_fn gave {tuple(noise.shape)} for "
+                                 f"group {g.gid}, expected {shape}")
+            g.carry = init_carry(noise.to(self.device))
+            if g.n_shared == 0:
+                g.carry = fork_carry(g.carry, N)
+                g.state = "branch"
+            else:
+                g.state = "shared"
         self.open_groups.remove(g)
         self.inflight.append(g)
 
     # -- advance ---------------------------------------------------------
+    def _store_trunk(self, g: _Group) -> None:
+        """Offer a group's trunk to the cache at its fork.  The carry may
+        be a row view of a whole pack's output (``packing.unpack_shared``),
+        whose storage the byte ledger would not count: the entry holds
+        compact copies."""
+        if self.trunk_cache is None:
+            return
+        self.trunk_cache.insert(TrunkEntry(
+            z=g.carry.z.clone(), eps_prev=g.carry.eps_prev.clone(),
+            step_idx=g.n_shared, beta_bucket=g.beta, rng_fold=g.gid,
+            centroid=g.centroid, cfg_key=self._cfg_key(g),
+            payload="trunk"), shape=g.shape)
+
     def _count_launch(self, rows: int, pad_rows: int,
                       shape: Optional[Tuple[int, ...]] = None) -> None:
         """Every segment launch, packed or per-group, lands here once: the
@@ -677,6 +744,7 @@ class RequestScheduler:
         if g.state == "shared":
             g.nfe += shared_phase_nfe(1, s)
             if g.steps_done == g.n_shared:
+                self._store_trunk(g)
                 g.carry = fork_carry(g.carry, len(g.members))
                 g.state = "branch"
         else:
@@ -839,8 +907,9 @@ class RequestScheduler:
                 self._cstat(r.qos, key)
             done.append(Completed(
                 prompt=r.prompt, image=imgs[i], group_id=g.gid,
-                nfe_share=g.nfe / len(g.members), latency=lat, qos=r.qos,
-                tier=r.tier, status=status))
+                nfe_share=g.nfe / len(g.members), latency=lat,
+                cache_hit=g.cache_hit, qos=r.qos, tier=r.tier,
+                status=status))
         return done
 
     # -- launch-policy context -------------------------------------------
@@ -1030,8 +1099,8 @@ class RequestScheduler:
                   adaptive: Optional[bool] = None) -> List[Completed]:
         """Drain one prompt list synchronously: greedy-clique grouping
         over the whole batch, per-clique beta buckets, phase-aligned
-        packed segments, VAE decode.  No faults (the drain has no tick to
-        retry on), and the tick counter does not move (streaming groups'
+        packed segments, VAE decode.  No trunk cache and no faults (the
+        drain has no tick to retry on), and the tick counter does not move (streaming groups'
         waits are counted in ticks).  Completions come back in group
         completion order."""
         if not prompts:
@@ -1048,6 +1117,7 @@ class RequestScheduler:
         # one _Group per packed row (a clique larger than N occupies
         # multiple rows in flatten_groups order); every row inherits its
         # clique's beta bucket
+        cache, self.trunk_cache = self.trunk_cache, None
         faults, self.faults = self.faults, None
         try:
             live: List[_Group] = []
@@ -1085,6 +1155,7 @@ class RequestScheduler:
                         live.remove(g)
                         self.inflight.remove(g)
         finally:
+            self.trunk_cache = cache
             self.faults = faults
         return done
 
@@ -1095,8 +1166,8 @@ class RequestScheduler:
                             default=1.0)
 
     def summary(self) -> Dict[str, float]:
-        """End-of-run rollup, the JAX scheduler's keys without a trunk
-        cache; zero-denominator ratios report 0.0."""
+        """End-of-run rollup, the JAX scheduler's keys (with a trunk cache,
+        its ``cache_*`` keys too); zero-denominator ratios report 0.0."""
         lat = np.asarray(self.latencies, np.float64)
         out = {
             "requests": self.stats["requests"],
@@ -1147,4 +1218,19 @@ class RequestScheduler:
         for s, ss in sorted(self.shape_stats.items()):
             for k, v in sorted(ss.items()):
                 out[f"shape_{s}_{k}"] = v
+        tc = self.trunk_cache
+        if tc is not None:
+            out["cache_hits"] = tc.stats["hits"]
+            out["cache_exact_hits"] = tc.stats["exact_hits"]
+            out["cache_hits_hbm"] = tc.stats["hits_hbm"]
+            out["cache_hits_host"] = tc.stats["hits_host"]
+            out["cache_admission_rejects"] = tc.stats["admission_rejects"]
+            out["cache_hit_rate"] = tc.hit_rate
+            out["cache_entries"] = len(tc)
+            out["cache_bytes"] = tc.bytes
+            out["cache_index"] = tc.index.name
+            out["cache_spills"] = tc.stats["spills"]
+            out["cache_promotions"] = tc.stats["promotions"]
+            out["cache_hbm_bytes"] = tc.tier_bytes["hbm"]
+            out["cache_host_bytes"] = tc.tier_bytes["host"]
         return out

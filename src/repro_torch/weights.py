@@ -9,7 +9,9 @@ The JAX package keeps parameters as nested dicts (``dit.init_params``,
   (``blocks.attn.wq``, ``prefix.0.ln1`` ...);
 * the stacked leading ``blocks`` axis that ``jax.vmap(init_block)`` builds
   is split into one entry per ``nn.ModuleList`` layer;
-* VAE conv weights go from HWIO to OIHW for ``F.conv2d``.
+* VAE conv weights go from HWIO to OIHW for ``F.conv2d``;
+* an ``LshIndex``'s hyperplanes (``jax.random`` draws, which torch cannot
+  reproduce) are carried into the port's index as they are.
 
 Loading is strict: a missing, extra or mis-shaped parameter raises.
 """
@@ -26,6 +28,7 @@ from repro_torch.models.dit import DiT
 from repro_torch.models.text_encoder import TextTower
 from repro_torch.models.transformer import LM
 from repro_torch.models.vae import VAEDecoder
+from repro_torch.serving.ann_index import LshIndex
 
 
 def _flatten(tree: Mapping, prefix: str = ""
@@ -108,3 +111,19 @@ def lm_from_jax(params: Mapping, cfg: ModelConfig, *, device="cuda") -> LM:
     model = LM(cfg, device=device)
     load_numpy(model, _unstack_blocks(dict(_flatten(params))))
     return model
+
+
+def lsh_from_jax(planes: Mapping[int, np.ndarray], *, n_tables: int = 8,
+                 n_bits: int = 6, seed: int = 0) -> LshIndex:
+    """A port :class:`LshIndex` hashing with a JAX ``LshIndex``'s planes:
+    ``planes`` maps an embedding dim to its (n_tables * n_bits, dim)
+    array (``{d: np.asarray(p) for d, p in index._planes.items()}``).
+    Dims not given are drawn by the port's own generator on first use."""
+    index = LshIndex(n_tables=n_tables, n_bits=n_bits, seed=seed)
+    for dim, arr in planes.items():
+        arr = np.asarray(arr, np.float32)
+        if arr.shape != (n_tables * n_bits, int(dim)):
+            raise ValueError(f"planes for dim {dim}: shape {arr.shape} != "
+                             f"{(n_tables * n_bits, int(dim))}")
+        index._planes[int(dim)] = arr.copy()
+    return index

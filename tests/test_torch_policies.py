@@ -26,7 +26,8 @@ from repro_torch.serving.faults import KINDS, FaultPlan
 from repro_torch.serving.scheduler import RequestScheduler
 
 from test_torch_streaming import (CS, _smoke_modules, assert_images_close,
-                                  records, serve_both)
+                                  one_torch_thread, records,  # noqa: F401
+                                  serve_both)
 
 
 class _G:

@@ -51,6 +51,19 @@ RECORD = ("prompt", "group_id", "nfe_share", "latency", "qos", "tier",
           "status")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread for the module's torch ops, restored after it.
+    The port's CPU runs are thousands of small ops; under several test
+    workers on few cores, a thread pool per op oversubscribes them and an
+    op waits on descheduled threads (a trace-C pass measured 3.7 s with
+    one thread against 181 s with eight, 8 cores busy)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def randomized(init, *args, seed):
     """Seeded random values (numpy) for every leaf of ``init(*args)``'s
     pytree: 0.1 for vectors, 1/sqrt(fan_in) for matrices and HWIO convs."""
