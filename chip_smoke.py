@@ -137,8 +137,10 @@ from __future__ import annotations
 import ast
 import contextlib
 import gc
+import importlib.util
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -147,10 +149,30 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
-PEAK_FLOPS = {"float32": 67e12,    # f32 outside the tensor cores
-              "bfloat16": 989e12,  # dense bf16 tensor cores
-              "tf32": 494.7e12}    # dense TF32 tensor cores
+
+def _card_costs():
+    """``repro_torch.launch.costs`` of this checkout, loaded from its file
+    (it imports the standard library only): the one source of the H100's
+    memory rate and dense bf16 peak.  Without it, the script exits."""
+    path = ROOT / "src" / "repro_torch" / "launch" / "costs.py"
+    if not path.is_file():
+        sys.exit(f"chip_smoke: no src/repro_torch/launch/costs.py beside "
+                 f"{Path(__file__).name}; run it from the repo's root")
+    spec = importlib.util.spec_from_file_location("_chip_smoke_costs", path)
+    mod = sys.modules[spec.name] = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+_COSTS = _card_costs()
+# H100 SXM: device memory, and dense bf16 tensor cores (launch/costs.py);
+# f32 outside the tensor cores and dense TF32 tensor cores (datasheet)
+HBM_BYTES_PER_S = _COSTS.HBM_BW
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": _COSTS.PEAK_FLOPS,
+              "tf32": 494.7e12}
+# nvidia-smi's name and power limit of the card, set by main(): printed
+# beside the numbers of the telemetry and example phases
+_SMI = ""
 # passes of a TF32 product per f32 product in the 3xTF32 kernels
 # (hi*hi + hi*lo + lo*hi); an operand in bf16 needs no split, so a product
 # with one bf16 operand takes 2 and one with two bf16 operands 1
@@ -520,6 +542,89 @@ STREAM_EXPECTED['C:nocache'] = {'by_qos': {'interactive/ok': 18},
                                 'shed_faulted': 0.0,
                                 'stalled_ticks': 0.0,
                                 'ticks': 15}
+
+
+# the JAX tracer's event counts (``Tracer.counts()``) of each stream trace,
+# served at smoke size on the CPU: traces H and O over their one pass,
+# trace C over its LSH pass (tests/test_torch_streaming.py,
+# test_torch_policies.py and test_torch_cache_serving.py pin them against
+# the JAX scheduler, whose traces the port's equal event for event); like
+# STREAM_EXPECTED they do not depend on the weights or the width, and the
+# stream phase's traced passes must give them exactly
+STREAM_TRACE_COUNTS = {
+    "H": {"group.fork": 4, "group.hold": 4, "group.launch": 4,
+          "phase.branch": 17, "phase.shared": 9, "request.admit": 12,
+          "request.complete": 12, "request.group": 12,
+          "request.submit": 12, "tick": 12, "tick.admit": 12,
+          "tick.advance": 12, "tick.complete": 12, "tick.launch": 12},
+    "O": {"group.fork": 5, "group.hold": 5, "group.launch": 5,
+          "group.preempt": 2, "group.resume": 2, "group.retry": 6,
+          "launch.fault": 5, "phase.branch": 23, "phase.shared": 14,
+          "request.admit": 11, "request.complete": 11, "request.group": 11,
+          "request.shed": 45, "request.submit": 56, "tick": 32,
+          "tick.admit": 31, "tick.advance": 31, "tick.complete": 31,
+          "tick.launch": 31, "tick.stall": 1},
+    "C": {"cache.exact": 2, "cache.miss": 3, "cache.store": 3,
+          "group.fork": 3, "group.hold": 5, "group.launch": 5,
+          "phase.branch": 16, "phase.shared": 8, "request.admit": 18,
+          "request.complete": 18, "request.group": 18,
+          "request.submit": 18, "tick": 15, "tick.admit": 15,
+          "tick.advance": 15, "tick.complete": 15, "tick.launch": 15},
+}
+
+# each op of ``kernels.dispatch.DISPATCH_LOG`` and the wrapper whose
+# launches its kernel-route rows count (``runners.launch_counts`` keys):
+# the log records every Python-level dispatch and a replay none, so over a
+# pass the two are equal, the replays left out
+DISPATCH_OPS = {"attention": "flash_attention", "cfg_ddim_step": "ddim_step",
+                "cfg_dpmpp_step": "dpmpp_step", "group_mean": "group_mean"}
+
+
+def dispatch_counts(routes):
+    """{op: dispatches that took its kernel route} of a ``DispatchLog``'s
+    ``routes``."""
+    out = {}
+    for (op, _, chosen, _, _), n in routes.items():
+        if chosen in ("kernel", "fused"):
+            out[op] = out.get(op, 0) + n
+    return out
+
+
+def reconcile(counts, ledger, events):
+    """A tracer's counts (and its cache events' tiers) against a run's
+    ledger of ``summary()``'s keys, as tests/test_telemetry.py reconciles
+    them: launches, completions, sheds, preemptions, resumes, retries,
+    faults, stalls, ticks and, with a cache, hits by kind and tier.
+    Returns the mismatches."""
+    c = counts
+    pairs = {
+        "launches": (c.get("phase.shared", 0) + c.get("phase.branch", 0),
+                     ledger["launches"]),
+        "completed": (c.get("request.complete", 0), ledger["completed"]),
+        "shed": (c.get("request.shed", 0), ledger["shed"]),
+        "shed_faulted": (c.get("request.shed_faulted", 0),
+                         ledger["shed_faulted"]),
+        "preemptions": (c.get("group.preempt", 0), ledger["preemptions"]),
+        "resumes": (c.get("group.resume", 0), ledger["resumes"]),
+        "retries": (c.get("group.retry", 0), ledger["retries"]),
+        "launch_faults": (c.get("launch.fault", 0),
+                          ledger["launch_faults"]),
+        "stalled_ticks": (c.get("tick.stall", 0), ledger["stalled_ticks"]),
+        "ticks": (c.get("tick", 0), ledger["ticks"])}
+    if "cache_hits" in ledger:
+        tiers = {"hbm": 0, "host": 0}
+        for e in events:
+            if e.name in ("cache.exact", "cache.ann"):
+                tiers[e.args["tier"]] += 1
+        pairs.update({
+            "cache_hits": (c.get("cache.exact", 0) + c.get("cache.ann", 0),
+                           ledger["cache_hits"]),
+            "cache_exact_hits": (c.get("cache.exact", 0),
+                                 ledger["cache_exact_hits"]),
+            "cache_hits_hbm": (tiers["hbm"], ledger["cache_hits_hbm"]),
+            "cache_hits_host": (tiers["host"], ledger["cache_hits_host"])})
+    return [f"{k}: trace {a} != ledger {b}" for k, (a, b) in pairs.items()
+            if a != b]
 
 
 def stream_shape(frac_h, frac_w, latent_size, channels):
@@ -1914,15 +2019,20 @@ def _stream_scheduler(modules, trace, device, **over):
     return engine.streaming_scheduler(**kw)
 
 
-def _stream_image_shapes(trace, latent_size):
-    """Each prompt's image (H, W, 3): the VAE's 8x of its class's latent."""
+def _stream_latent_shapes(trace, latent_size):
+    """Each prompt's latent (H, W): its class's fraction of the grid."""
     spec = STREAM_TRACES[trace]
     classes = (spec.get("classes")
                or tuple(c for _, wave in spec.get("waves", ()) for c in wave)
                or (("all", 0, 0, (1, 1), (1, 1)),))
-    return {STREAM_PROMPTS[c[2]]: tuple(
-        8 * x for x in stream_shape(c[3], c[4], latent_size, 1)[:2]) + (3,)
-        for c in classes}
+    return {STREAM_PROMPTS[c[2]]: stream_shape(c[3], c[4], latent_size, 1)[:2]
+            for c in classes}
+
+
+def _stream_image_shapes(trace, latent_size):
+    """Each prompt's image (H, W, 3): the VAE's 8x of its class's latent."""
+    return {p: (8 * h, 8 * w, 3) for p, (h, w) in _stream_latent_shapes(
+        trace, latent_size).items()}
 
 
 def _graphs(sched):
@@ -1933,21 +2043,30 @@ def _graphs(sched):
 
 
 def _serve_stream(sched, trace, label, cfg, failures, now=0.0,
-                  expected=True, expect=None):
+                  expected=True, expect=None, telemetry=None):
     """One counted pass of ``trace`` through ``sched`` (every launch count
     set to 0 just before, read just after): with ``expected``, the
     discrete outcome against ``STREAM_EXPECTED[expect or trace]`` (a later
     pass on the same scheduler without the tier and shape ledgers, which
     accumulate); the kernels of the trace's path, every image finite and
     of its class's shape; the pass's walls, ledgers, latencies, graphs,
-    capture seconds, memory and packs with a 2-D grid printed.  Returns
+    capture seconds, memory and packs with a 2-D grid printed.  Given a
+    ``telemetry`` dict, the pass is traced: a ``Tracer`` on the scheduler
+    and ``DISPATCH_LOG`` on for this pass only, checked by ``_telemetry``,
+    and the dict receives the pass's wall, tracer and routes.  Returns
     (records, launches by the wrappers, by graph replays, the clock, the
     outcome, the packs with a 2-D grid)."""
     import numpy as np
     import torch
+    from repro_torch.kernels.dispatch import DISPATCH_LOG
     from repro_torch.serving import packing
+    from repro_torch.serving.telemetry import Tracer
 
     dev = torch.device("cuda:0")
+    if telemetry is not None:
+        sched.tracer = Tracer()
+        DISPATCH_LOG.reset()
+        DISPATCH_LOG.enabled = True
     ticks0, stats0 = sched.ticks, dict(sched.stats)
     graphs0, cap0 = _graphs(sched)
     _reset_counts(_counters())
@@ -1961,6 +2080,12 @@ def _serve_stream(sched, trace, label, cfg, failures, now=0.0,
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     wrappers, replayed = _ran()
+    if telemetry is not None:
+        DISPATCH_LOG.enabled = False
+        telemetry.update(wall=wall, tracer=sched.tracer,
+                         routes=dict(DISPATCH_LOG.routes))
+        DISPATCH_LOG.reset()
+        sched.tracer = None
     graphs, cap = _graphs(sched)
     st = {k: sched.stats[k] - stats0[k] for k in sched.stats}
     ticks = sched.ticks - ticks0
@@ -2006,6 +2131,9 @@ def _serve_stream(sched, trace, label, cfg, failures, now=0.0,
         f"{got['deadline_missed']:g}")
     _check_path_kernels(f"stream:{trace}", _summed(wrappers, replayed),
                         failures)
+    if telemetry is not None:
+        _telemetry(sched, trace, label, telemetry, dict(st, ticks=ticks),
+                   wrappers, failures)
     shapes = _stream_image_shapes(trace, cfg.latent_size)
     for c in done:
         if c.image is not None and (c.image.shape != shapes[c.prompt]
@@ -2016,12 +2144,155 @@ def _serve_stream(sched, trace, label, cfg, failures, now=0.0,
     return done, wrappers, replayed, now, got, grids[0]
 
 
+def _telemetry(sched, trace, label, telemetry, ledger, wrappers, failures):
+    """A traced pass's checks, printed on ``[telemetry:<trace>]`` lines:
+    the tracer's counts reconcile with the pass's ledger (``reconcile``;
+    with a cache, its hits by kind and tier from the pass's own cache) and
+    equal ``STREAM_TRACE_COUNTS[trace]``; the tracer's own emit time is
+    under 5% of the pass wall (the JAX package's bar); each kernel op's
+    dispatches in the log equal its wrapper's launches outside the graph
+    replays.  The registry's Prometheus line count and the routes are
+    printed."""
+    tracer, wall, routes = (telemetry[k] for k in ("tracer", "wall",
+                                                   "routes"))
+    counts = tracer.counts()
+    tc = sched.trunk_cache
+    if tc is not None:
+        ledger.update(cache_hits=tc.stats["hits"],
+                      cache_exact_hits=tc.stats["exact_hits"],
+                      cache_hits_hbm=tc.stats["hits_hbm"],
+                      cache_hits_host=tc.stats["hits_host"])
+    bad = reconcile(counts, ledger, tracer.events)
+    want = STREAM_TRACE_COUNTS[trace]
+    logged = dispatch_counts(routes)
+    logged = {op: logged.get(op, 0) for op in DISPATCH_OPS}
+    launched = {op: wrappers[w] for op, w in DISPATCH_OPS.items()}
+    share = tracer.self_seconds / wall
+    prom_lines = sched.metrics.to_prometheus().count("\n")
+    tag = f"[telemetry:{trace}]"
+    log(f"{tag} {label}: counts {dict(sorted(counts.items()))}; tracer "
+        f"self_seconds={tracer.self_seconds:.6f} of the pass wall_s="
+        f"{wall:.3f} ({100 * share:.4f}%, the bar 5%); {len(tracer.events)}"
+        f" events, {tracer.dropped} dropped; Prometheus lines "
+        f"{prom_lines}; {_SMI}")
+    rows = [f"{op} {req}->{ch} [{shape}] {reason} x{n}"
+            for (op, req, ch, reason, shape), n in sorted(routes.items())]
+    log(f"{tag} dispatch routes ({len(rows)}): {rows}")
+    log(f"{tag} kernel-route dispatches {logged}, the wrappers' launches "
+        f"outside the replays {launched}: "
+        f"{'equal' if logged == launched else 'DIFFER'}; counts "
+        f"{'equal to' if counts == want else 'DIFFER from'} "
+        f"STREAM_TRACE_COUNTS[{trace!r}]; reconciled with the pass's "
+        f"ledger: {'yes' if not bad else bad}")
+    if bad or counts != want or share >= 0.05 or logged != launched:
+        differ = sorted(k for k in set(want) | set(counts)
+                        if counts.get(k) != want.get(k))
+        failures.append(
+            f"telemetry {trace} {label}: reconcile {bad}; counts differ "
+            f"from STREAM_TRACE_COUNTS in {differ}; self_seconds share "
+            f"{share:.4f}; dispatches {logged} vs launches {launched}")
+
+
+def _row_flops(dit, cfg, hw):
+    """FLOPs of one denoiser evaluation, one NFE (one latent row, one half
+    of a CFG pair), of an (H, W) latent on ``dit`` with its text context:
+    ``torch.utils.flop_counter``'s count of the forward's products run
+    once with the plain attention route (the elementwise work left out,
+    which only lowers the floor)."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.config import replace
+    dev = next(dit.parameters()).device
+    with FlopCounterMode(display=False) as fc:
+        dit(torch.zeros(1, *hw, cfg.latent_channels, device=dev),
+            torch.full((1,), 500.0, device=dev),
+            torch.zeros(1, cfg.cond_len, cfg.cond_dim, device=dev),
+            cfg=replace(cfg, attn_impl="naive"))
+    return fc.get_total_flops()
+
+
+def _traced_h(failures, cfg, modules, sched, replay, outcome, ledger, now,
+              base):
+    """Trace H a third time on ``sched``, traced (a ``Tracer`` and the
+    dispatch log on beside the scheduler's registry): the twin of its
+    untraced replay pass (``replay`` records, ``outcome``, ``ledger`` its
+    stats), each pass drawing its groups' noise by their gid within the
+    pass (``base``).  Its images must be bitwise those, its outcome and
+    stats equal, no graph captured and no wrapper launch made but the text
+    tower's.  Then the roofline floor of the pass's work on the card
+    (``launch/costs.py``'s bf16 peak over each served request's NFE, one
+    row's forward at its class's latent an NFE, ``_row_flops``) beside its
+    wall, and the capacity report's own floor, which counts a CFG pair at
+    the full latent an NFE (the JAX package's formula).  Returns the
+    clock."""
+    from repro_torch.serving import reports
+
+    base[0] = sched._next_gid
+    graphs = _graphs(sched)[0]
+    stats0 = dict(sched.stats)
+    tel = {}
+    done, w, _, now, got, _ = _serve_stream(
+        sched, "H", "replay, traced", cfg, failures, now=now, telemetry=tel)
+    stats = {k: sched.stats[k] - stats0[k] for k in sched.stats}
+    eager = {k: n for k, n in w.items() if n and k not in (
+        "flash_attention", "flash_attention/tf32x3")}
+    same, err = _same_images(done, replay)
+    differ = sorted(k for k in set(got) | set(outcome)
+                    if got.get(k) != outcome.get(k))
+    differ += sorted(k for k in ledger if stats.get(k) != ledger[k])
+    log(f"[telemetry:H] the traced replay against the untraced replay: "
+        f"images {'bitwise equal' if same else 'DIFFER'} (max {err:.3e}); "
+        f"outcome and stats {'equal' if not differ else differ}")
+    if _graphs(sched)[0] != graphs or eager or not same or differ:
+        failures.append(f"telemetry H: the traced replay captured new "
+                        f"graphs or launched {eager} outside them, images "
+                        f"bitwise {same}, outcome or stats differ in "
+                        f"{differ}")
+    dit = modules[0]
+    hw = _stream_latent_shapes("H", cfg.latent_size)
+    flops = {s: _row_flops(dit, cfg, s) for s in set(hw.values())}
+    nfe = sum(c.nfe_share for c in done)
+    floor = sum(c.nfe_share * flops[hw[c.prompt]] for c in done
+                ) / _COSTS.PEAK_FLOPS
+    wall, served = tel["wall"], len(done)
+    n_params = sum(p.numel() for p in dit.parameters())
+    cap = reports.capacity_report(
+        dict(stats, ticks=got["ticks"]),
+        total_steps=STREAM_TRACES["H"]["sage"]["total_steps"],
+        share_ratio=sched.sage.share_ratio, group_size=4,
+        slice_steps=STREAM_TRACES["H"]["scheduler"]["slice_steps"],
+        n_params=n_params, n_tokens=(cfg.latent_size // cfg.patch) ** 2)
+    log(f"[telemetry:H] roofline floor of the traced replay ("
+        f"launch/costs.py: {_COSTS.PEAK_FLOPS:.4g} FLOP/s dense bf16; "
+        f"FLOPs of one row's forward, an NFE, by latent (H, W): "
+        f"{ {s: f'{f:.6e}' for s, f in sorted(flops.items())} }): "
+        f"{floor * 1e3:.3f} ms for its {nfe:g} NFE ({stats['nfe']:g} in "
+        f"the ledger), {floor / nfe * 1e3:.4f} ms an NFE, "
+        f"{floor / served * 1e3:.3f} ms a request; measured wall_s="
+        f"{wall:.3f}: {wall / nfe * 1e3:.3f} ms an NFE, "
+        f"{wall / served * 1e3:.3f} ms a request, {wall / floor:.2f}x the "
+        f"floor; {_SMI}")
+    roof = cap["roofline"]
+    log(f"[telemetry:H] capacity_report's own floor (n_params={n_params}, "
+        f"2 n_params 2 tokens = {roof['flops_per_eval']:.6e} FLOPs an NFE: "
+        f"a CFG pair at the full latent, so above the work): "
+        f"{roof['seconds_per_request_floor'] * 1e3:.3f} ms a request; "
+        f"ticks predicted {cap['predicted']['ticks_to_drain']} observed "
+        f"{cap['observed']['ticks']}")
+    if not 0 < floor < wall or abs(nfe - stats["nfe"]) > 1e-6 * nfe:
+        failures.append(f"telemetry H: roofline floor {floor:.6f} s not "
+                        f"under the wall {wall:.6f} s, or the records' NFE "
+                        f"{nfe} differ from the ledger's {stats['nfe']}")
+    return now
+
+
 def phase_stream(failures, cfg, modules):
     """The streaming scheduler at full sage-dit width on the DiT paths'
     modules: trace H twice on one scheduler (the first pass captures, the
     second must only replay: no new graph, no wrapper launch but the text
-    tower's), once more under torch.profiler, then with ``packed=False`` on
-    a fresh scheduler (the same outcome but for the launch ledger; the
+    tower's), a third time traced (``_traced_h``), once more under
+    torch.profiler, then with ``packed=False`` on a fresh scheduler (the
+    same outcome but for the launch ledger; the
     largest image difference from the packed run is printed beside the
     1e-3 end-to-end tolerance, a report: cuBLAS picks its algorithms by
     batch); trace O once; trace C in its four passes (``_stream_cache``)
@@ -2031,13 +2302,20 @@ def phase_stream(failures, cfg, modules):
     import numpy as np
     import torch
 
+    from repro_torch.serving.scheduler import default_noise
+
     dev = torch.device("cuda:0")
     out = {}
-    sched = _stream_scheduler(modules, "H", dev)
+    base = [0]
+    sched = _stream_scheduler(modules, "H", dev, noise_fn=lambda gid, s:
+                              default_noise(0, gid - base[0], s))
     first, *_ = _serve_stream(sched, "H", "capture", cfg, failures)
     graphs = _graphs(sched)[0]
-    _, w, r, now, _, _ = _serve_stream(sched, "H", "replay", cfg, failures,
-                                       now=100.0)
+    base[0] = sched._next_gid
+    stats0 = dict(sched.stats)
+    replay, w, r, now, got, _ = _serve_stream(sched, "H", "replay", cfg,
+                                              failures, now=100.0)
+    ledger = {k: sched.stats[k] - stats0[k] for k in sched.stats}
     out["stream:H"] = (w, r)
     eager = {k: n for k, n in w.items() if n and k not in (
         "flash_attention", "flash_attention/tf32x3")}
@@ -2045,6 +2323,8 @@ def phase_stream(failures, cfg, modules):
         failures.append(f"stream H replay: the second pass captured "
                         f"{_graphs(sched)[0]} (first {graphs}) or launched "
                         f"{eager} outside the graphs")
+    now = _traced_h(failures, cfg, modules, sched, replay, got, ledger,
+                    now + 100.0, base)
     _reset_counts(_counters())
     rows = _profile("stream:H", lambda: drive_stream(
         sched, "H", cfg.latent_size, cfg.latent_channels, now + 100.0),
@@ -2078,8 +2358,10 @@ def phase_stream(failures, cfg, modules):
     gc.collect()
     torch.cuda.empty_cache()
 
-    sched = _stream_scheduler(modules, "O", dev)
-    _, w, r, _, _, _ = _serve_stream(sched, "O", "capture", cfg, failures)
+    from repro_torch.serving.telemetry import MetricsRegistry
+    sched = _stream_scheduler(modules, "O", dev, metrics=MetricsRegistry())
+    _, w, r, _, _, _ = _serve_stream(sched, "O", "capture", cfg, failures,
+                                     telemetry={})
     out["stream:O"] = (w, r)
     log(f"[stream:O] faults injected {sched.faults.injected} over "
         f"{sched.faults.queries} queries")
@@ -2090,6 +2372,55 @@ def phase_stream(failures, cfg, modules):
                                                 dev)
     _stream_cache_f32(failures, cfg, modules, dev, cap, plain)
     return out
+
+
+# the example's chaos drill at its smoke size (its docstring's flags with
+# the trunk cache, 4 themes and the telemetry outputs), on the kernel routes
+EXAMPLE_ARGS = ("--streaming", "--trunk-cache", "--themes", "4",
+                "--requests", "48", "--arrival-rate", "4.0", "--qos-mix",
+                "0.25", "--overload", "shed", "--max-groups-per-tick", "2",
+                "--fault-plan", "launch=0.1,stall=0.05,seed=7", "--report",
+                "--backend", "kernel", "--fused-step")
+
+
+def phase_example(failures):
+    """``python -m repro_torch.examples.serve_shared`` in a child process
+    on the card with ``EXAMPLE_ARGS``, its trace and metrics written to a
+    temporary directory: it must exit 0, print its joined report with a
+    conservation residual of 0 and write a trace and an exposition.  Its
+    output is printed (``[example]`` lines)."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        trace, prom = Path(tmp) / "trace.json", Path(tmp) / "metrics.prom"
+        cmd = [sys.executable, "-m", "repro_torch.examples.serve_shared",
+               *EXAMPLE_ARGS, "--trace", str(trace), "--metrics", str(prom)]
+        t0 = time.perf_counter()
+        try:
+            run = subprocess.run(cmd, cwd=ROOT, capture_output=True,
+                                 text=True, timeout=300, env=dict(
+                                     os.environ,
+                                     PYTHONPATH=str(ROOT / "src")))
+        except subprocess.TimeoutExpired:
+            failures.append("example: no exit within 300 s")
+            return
+        wall = time.perf_counter() - t0
+        for line in run.stdout.splitlines():
+            log(f"[example] {line}")
+        events = (len(json.loads(trace.read_text())["traceEvents"])
+                  if trace.is_file() else 0)
+        lines = prom.read_text().count("\n") if prom.is_file() else 0
+    residual = re.search(r"^\s+residual\s+(-?\d+)$", run.stdout, re.M)
+    log(f"[example] exit {run.returncode} in {wall:.1f} s (a child "
+        f"process: start, kernels loaded, graphs captured); trace events "
+        f"{events}, Prometheus lines {lines}; {_SMI}")
+    if (run.returncode != 0 or "== SLO report ==" not in run.stdout
+            or residual is None or residual.group(1) != "0" or not events
+            or not lines):
+        failures.append(f"example: exit {run.returncode}, report printed "
+                        f"{'== SLO report ==' in run.stdout}, residual "
+                        f"{residual and residual.group(1)}, {events} trace "
+                        f"events, {lines} Prometheus lines; stderr "
+                        f"{run.stderr[-2000:]}")
 
 
 def _same_images(a, b):
@@ -2335,7 +2666,8 @@ def _stream_cache(failures, cfg, modules, dev):
             pass_start()
             graphs = _graphs(sched)[0]
             done, w, r, now, got, grids = _serve_stream(
-                sched, "C", label, cfg, failures, now=now, expect=expect)
+                sched, "C", label, cfg, failures, now=now, expect=expect,
+                telemetry={} if label == "replay, lsh" else None)
             now += 100.0
             launches.append((w, r))
             res[label] = (done, got, grids, sched.trunk_cache)
@@ -3350,12 +3682,14 @@ def main(argv) -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    global _SMI
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip()
+    _SMI = smi
     log(f"[device] {torch.cuda.get_device_name(0)} x "
         f"{torch.cuda.device_count()}; torch {torch.__version__} "
         f"cuda {torch.version.cuda}; {smi}")
@@ -3373,6 +3707,8 @@ def main(argv) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     t4 = time.perf_counter()
+    phase_example(failures)
+    t4e = time.perf_counter()
     launches.update(phase_mamba2(failures))
     t5 = time.perf_counter()
     phase_reference(failures)
@@ -3382,9 +3718,9 @@ def main(argv) -> int:
     phase_graph_nodes(failures, nodes, parent)
     t7 = time.perf_counter()
     log(f"[time] build {t1 - t0:.1f} s, kernels {t2 - t1:.1f} s, "
-        f"e2e DiT {t3 - t2:.1f} s, stream {t4 - t3:.1f} s, e2e mamba2 "
-        f"{t5 - t4:.1f} s, reference {t6 - t5:.1f} s, graph nodes "
-        f"{t7 - t6:.1f} s")
+        f"e2e DiT {t3 - t2:.1f} s, stream {t4 - t3:.1f} s, example "
+        f"{t4e - t4:.1f} s, e2e mamba2 {t5 - t4e:.1f} s, reference "
+        f"{t6 - t5:.1f} s, graph nodes {t7 - t6:.1f} s")
     if failures:
         for f in failures:
             print(f"chip_smoke FAILED: {f}", file=sys.stderr)

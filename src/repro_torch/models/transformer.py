@@ -35,8 +35,8 @@ Cache = Dict[str, Any]
 CAST = ("embed", "head", "z_proj", "x_proj", "bc_proj", "dt_proj",
         "out_proj", "D")
 
-_NOT_PORTED = ("not ported yet: ROADMAP.md §1, 'Next', item 2.4 (the "
-               "other LLM mixers: attention KV cache, MoE, RG-LRU, MLA, "
+_NOT_PORTED = ("not ported yet: ROADMAP.md §1, item 4 (the rest of the "
+               "LLM substrate: attention KV cache, MoE, RG-LRU, MLA, "
                "cross-attention)")
 
 

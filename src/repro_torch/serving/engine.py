@@ -25,6 +25,7 @@ from repro_torch.models.vae import VAEDecoder
 from repro_torch.serving.policies import LaunchPolicy
 from repro_torch.serving.scheduler import (Completed, NoiseFn,
                                            RequestScheduler)
+from repro_torch.serving.telemetry import MetricsRegistry, Tracer
 from repro_torch.serving.trunk_cache import TrunkCache
 
 __all__ = ["Completed", "SageServingEngine"]
@@ -38,7 +39,9 @@ class SageServingEngine:
                  seed: int = 0, attn_impl: Optional[str] = None,
                  step_impl: Optional[str] = None,
                  noise_fn: Optional[NoiseFn] = None,
-                 policy: Union[str, LaunchPolicy] = "eager", device="cuda"):
+                 policy: Union[str, LaunchPolicy] = "eager", device="cuda",
+                 tracer: Optional[Tracer] = None,
+                 metrics: Optional[MetricsRegistry] = None):
         """``attn_impl`` / ``step_impl`` override the DiT's and the
         sampler's kernel routes (``attn_impl`` in the scheduler's own copy
         of the DiT config: the module is left as it is, so engines sharing
@@ -48,7 +51,11 @@ class SageServingEngine:
         ``policy`` is the launch policy (``serving.policies``) the
         :meth:`streaming_scheduler` inherits; the synchronous :meth:`step`
         has no arrivals to hold for.  ``device`` defaults to CUDA and
-        raises without a GPU; the modules must live there."""
+        raises without a GPU; the modules must live there.
+        ``tracer`` / ``metrics`` (``serving.telemetry``) go to the
+        engine's own scheduler; a streaming scheduler wants its own
+        (registry names are claimed once per scheduler): pass them to
+        :meth:`streaming_scheduler`."""
         if step_impl is not None:
             sage = config_replace(sage, step_impl=step_impl)
         self.sage = sage
@@ -64,7 +71,8 @@ class SageServingEngine:
         self.scheduler = RequestScheduler(
             sage, dit, text, vae, sched=sched, group_size=group_size,
             branch_buckets=branch_buckets, policy=policy, seed=seed,
-            noise_fn=noise_fn, attn_impl=attn_impl, device=device)
+            noise_fn=noise_fn, attn_impl=attn_impl, device=device,
+            tracer=tracer, metrics=metrics)
 
     def submit(self, prompts: Sequence[str]) -> None:
         self.queue.extend(prompts)
@@ -87,8 +95,9 @@ class SageServingEngine:
         optional cross-batch ``trunk_cache``; the engine's own scheduler
         and stats are untouched.  The streaming knobs of
         :class:`RequestScheduler` (``packed``, ``tiers``, ``mix_samplers``,
-        QoS, admission, faults) go through ``**kw``; per-request shape /
-        tier / sampler are chosen at ``submit()``."""
+        QoS, admission, faults, ``tracer`` / ``metrics``) go through
+        ``**kw``; per-request shape / tier / sampler are chosen at
+        ``submit()``."""
         kw.setdefault("seed", self.seed)
         kw.setdefault("policy", self.policy)
         kw.setdefault("noise_fn", self.noise_fn)

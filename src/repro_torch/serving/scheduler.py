@@ -1,8 +1,7 @@
 """Request scheduler: the streaming tick loop and the synchronous batch.
 
-The port of the JAX package's ``serving/scheduler.py`` without its
-telemetry.  The serving loop runs as repeated **ticks** over in-flight
-groups:
+The port of the JAX package's ``serving/scheduler.py``.  The serving
+loop runs as repeated **ticks** over in-flight groups:
 
 * **admission** — arriving requests (``submit``) pass the admission policy
   (``serving.policies``: shed or degrade past a saturation estimate; a
@@ -46,6 +45,21 @@ tick), no arrivals, no cache, no faults, and the tick counter left alone.
 
 Time is injectable: ``submit`` / ``tick`` take ``now`` (a virtual clock of
 one unit a tick, or wall seconds; ``time.monotonic()`` by default).
+
+Observability (``serving.telemetry``): the stats dicts are
+:class:`~repro_torch.serving.telemetry.StatGroup` members of a
+:class:`~repro_torch.serving.telemetry.MetricsRegistry` (``summary()`` is
+a view of registry-homed counters; pass ``metrics=`` to share a registry
+with an exporter), with gauges, the fault families, the cache's group and
+three histograms beside them, and an optional
+:class:`~repro_torch.serving.telemetry.Tracer` receives the JAX
+scheduler's lifecycle spans at the same points and in the same order
+within a tick, so the two packages' traces of one run are equal event
+for event.  Emission is clocked by the same injectable ``now``; with
+``tracer=None`` (the default) each emit site is one ``is not None`` test.
+Emit arguments are host values the scheduler already holds (never a
+device tensor, which would sync the stream), and tracing touches no
+sampler input: an enabled tracer is output-invisible.
 
 Each segment goes through the runner of its key (phase, n_steps,
 samplers), as in the JAX scheduler (``_shared_runner`` /
@@ -103,16 +117,16 @@ from repro_torch.serving.policies import (DEFAULT_QOS, DEFAULT_TIER,
                                           make_launch_order,
                                           make_launch_policy)
 from repro_torch.serving.runners import SegmentRunner
+from repro_torch.serving.telemetry import (LATENCY_BUCKETS,
+                                           OCCUPANCY_BUCKETS, PID_GROUPS,
+                                           PID_REQUESTS, QUEUE_DEPTH_BUCKETS,
+                                           MetricsRegistry, Tracer,
+                                           safe_ratio)
 from repro_torch.serving.trunk_cache import TrunkCache, TrunkEntry
 
 NoiseFn = Callable[[int, Tuple[int, ...]], torch.Tensor]
 # a bucket's solver: one name (uniform pack) or one per row (mixed pack)
 Samplers = Union[str, Tuple[str, ...]]
-
-
-def _ratio(num: float, den: float, default: float = 0.0) -> float:
-    """``num / den``, or ``default`` when ``den`` is 0."""
-    return num / den if den else default
 
 
 def default_noise(seed: int, gid: int, shape: Tuple[int, ...]
@@ -216,7 +230,12 @@ class RequestScheduler:
     launch retries before a group is shed.  Hetero: ``tiers`` maps tier
     names to step budgets (default draft T//2, standard T, premium
     T + T//2); ``degrade_tier`` is where ``degrade`` admission sends a
-    request; ``mix_samplers`` lets packs mix solvers row by row."""
+    request; ``mix_samplers`` lets packs mix solvers row by row.
+    Observability: ``tracer`` receives the lifecycle and phase spans
+    (``None`` traces nothing, at one test a site); ``metrics`` is the
+    :class:`~repro_torch.serving.telemetry.MetricsRegistry` the stats
+    groups register into (one scheduler a registry; a private one by
+    default)."""
 
     def __init__(self, sage: SageConfig, dit: DiT, text: TextTower,
                  vae: Optional[VAEDecoder] = None,
@@ -236,6 +255,8 @@ class RequestScheduler:
                  admission: Union[str, AdmissionPolicy, None] = None,
                  faults: Optional[FaultPlan] = None,
                  max_retries: int = 3,
+                 tracer: Optional[Tracer] = None,
+                 metrics: Optional[MetricsRegistry] = None,
                  tiers: Optional[Dict[str, int]] = None,
                  degrade_tier: str = "draft",
                  mix_samplers: bool = False,
@@ -316,7 +337,14 @@ class RequestScheduler:
         # f32); runners key -> segment runner (a CUDA graph per signature)
         self.cast_bytes = dit.cast_weights_(getattr(torch, self.cfg.dtype))
         self._runners: Dict[Tuple, Callable[..., SampleCarry]] = {}
-        self.stats: Dict[str, float] = {
+        # telemetry: the stats dicts are StatGroups of a MetricsRegistry
+        # (plain dicts, so the += sites and their readers are unchanged),
+        # the registry the export surface of the scheduler, cache and fault
+        # counters, gauges and histograms; the tracer is inert when None
+        self.tracer = tracer
+        self.metrics = metrics if metrics is not None else \
+            MetricsRegistry()
+        self.stats: Dict[str, float] = self.metrics.group("scheduler", {
             "nfe": 0.0, "nfe_independent": 0.0, "requests": 0,
             "completed": 0, "nfe_saved_cache": 0.0,
             # segment launches, latent rows they carried, pad rows among them
@@ -326,17 +354,55 @@ class RequestScheduler:
             "shed": 0, "degraded": 0, "rejected_expired": 0,
             "preemptions": 0, "resumes": 0, "retries": 0,
             "launch_faults": 0, "shed_faulted": 0, "stalled_ticks": 0,
-            "deadline_met": 0, "deadline_missed": 0, "nfe_wasted": 0.0}
+            "deadline_met": 0, "deadline_missed": 0, "nfe_wasted": 0.0})
         # per-class outcome counters and latencies; per-tier NFE / outcome
         # and per-shape launch ledgers
         self.class_stats: Dict[str, Dict[str, float]] = {}
         self.class_latencies: Dict[str, "deque[float]"] = {}
+        self.metrics.attach_nested("scheduler_class", self.class_stats,
+                                   "qos")
         self.tier_stats: Dict[str, Dict[str, float]] = {}
+        self.metrics.attach_nested("scheduler_tier", self.tier_stats,
+                                   "tier")
         self.shape_stats: Dict[str, Dict[str, float]] = {}
+        self.metrics.attach_nested("scheduler_shape", self.shape_stats,
+                                   "shape")
+        self.metrics.gauge("scheduler_ticks", lambda: self.ticks)
+        self.metrics.gauge("scheduler_pending", lambda: self.pending)
+        self.metrics.gauge("scheduler_arrival_rate",
+                           lambda: self._arrival_rate)
+        self.metrics.gauge("scheduler_inflight_groups",
+                           lambda: len(self.inflight))
+        if faults is not None:
+            self.metrics.attach_family("faults_injected",
+                                       faults.injected, "kind")
+            self.metrics.attach_family("faults_queries",
+                                       faults.queries, "kind")
+        if trunk_cache is not None:
+            self.metrics.attach_group("cache", trunk_cache.stats)
+            self.metrics.gauge("cache_bytes", lambda: trunk_cache.bytes)
+            self.metrics.gauge("cache_entries",
+                               lambda: len(trunk_cache))
+            self.metrics.gauge("cache_hbm_bytes",
+                               lambda: trunk_cache.tier_bytes["hbm"])
+            self.metrics.gauge("cache_host_bytes",
+                               lambda: trunk_cache.tier_bytes["host"])
+        # fixed-bucket histograms beside the exact-percentile windows: the
+        # windows keep summary()'s percentiles exact, the histograms give
+        # the exporter cumulative distributions that never reset
+        self._h_latency = self.metrics.histogram(
+            "scheduler_latency_ticks", LATENCY_BUCKETS)
+        self._h_queue = self.metrics.histogram(
+            "scheduler_queue_depth", QUEUE_DEPTH_BUCKETS)
+        self._h_occupancy = self.metrics.histogram(
+            "scheduler_pack_occupancy", OCCUPANCY_BUCKETS)
         # arrivals-per-tick EWMA (admission's backlog decisions and the
         # adaptive hold budget)
         self._arrival_rate = 0.0
         self._arrivals_since_tick = 0
+        # the clock of the tick under way: the timestamp of the events
+        # emitted below tick() / run_batch() (the fork and store marks)
+        self._tick_now = 0.0
         # deficit-round-robin credit per class, kept across ticks
         self._wfq_credit: Dict[str, float] = {}
         # bounded windows: summary() percentiles are over the trailing ones
@@ -511,6 +577,7 @@ class RequestScheduler:
                                  f"have ['ddim', 'dpmpp']")
         conds, pooled = self._embed(prompts)
         rids = []
+        tr = self.tracer
         for p, c, e, q, shp, t, smp in zip(prompts, conds, pooled, qs,
                                            shapes, tiers, samplers):
             r = Request(p, c, e, rid=self._next_rid, t_arrival=now,
@@ -519,6 +586,11 @@ class RequestScheduler:
             self._next_rid += 1
             self.arrivals.append(r)
             rids.append(r.rid)
+            if tr is not None:
+                tr.instant("request.submit", now, pid=PID_REQUESTS,
+                           tid=r.rid, qos=q, deadline=deadline,
+                           shape="x".join(map(str, shp)), tier=t,
+                           sampler=smp)
         self.stats["requests"] += n
         self._arrivals_since_tick += n
         return rids
@@ -536,13 +608,17 @@ class RequestScheduler:
             tier, {"requests": 0, "completed": 0, "nfe": 0.0})
         d[key] = d.get(key, 0) + inc
 
-    def _refuse(self, r: Request, status: str) -> Completed:
+    def _refuse(self, r: Request, status: str,
+                now: float = 0.0) -> Completed:
         """An accounted non-service outcome (shed / rejected_expired): a
         record with no image."""
         self.stats[status] += 1
         self._cstat(r.qos, "requests")
         self._cstat(r.qos, status)
         self._tstat(r.tier, "requests")
+        if self.tracer is not None:
+            self.tracer.instant(f"request.{status}", now,
+                                pid=PID_REQUESTS, tid=r.rid, qos=r.qos)
         return Completed(prompt=r.prompt, image=None, group_id=-1,
                          nfe_share=0.0, latency=0.0, qos=r.qos,
                          tier=r.tier, status=status)
@@ -585,23 +661,28 @@ class RequestScheduler:
         # arrival joins changes
         open_embeds = [np.stack([m.pooled for m in g.members])
                        for g in self.open_groups]
+        tr = self.tracer
         for r in arrivals:
             # a deadline already expired, or expiring within one segment
             if r.deadline is not None and r.deadline <= now + 1.0:
-                notices.append(self._refuse(r, "rejected_expired"))
+                notices.append(self._refuse(r, "rejected_expired", now))
                 continue
             verdict = self.admission.decide(AdmissionContext(
                 now=now, qos=r.qos, deadline=r.deadline,
                 backlog_ticks=backlog, ticks_to_finish=ttf,
                 arrival_rate=self._arrival_rate))
             if verdict == SHED:
-                notices.append(self._refuse(r, "shed"))
+                notices.append(self._refuse(r, "shed", now))
                 continue
             if verdict == DEGRADE:
                 r.degraded = True
                 r.tier = self.degrade_tier
             self._cstat(r.qos, "requests")
             self._tstat(r.tier, "requests")
+            if tr is not None:
+                tr.instant("request.admit", now, pid=PID_REQUESTS,
+                           tid=r.rid, qos=r.qos, degraded=r.degraded,
+                           tier=r.tier)
             cand = [i for i, g in enumerate(self.open_groups)
                     if g.qos == r.qos and g.tier == r.tier
                     and g.shape == r.shape and g.sampler == r.sampler]
@@ -614,6 +695,7 @@ class RequestScheduler:
                 g.degraded = g.degraded or r.degraded
                 open_embeds[cand[gi]] = np.concatenate(
                     [open_embeds[cand[gi]], r.pooled[None]], 0)
+                gid, seeded = g.gid, False
             else:
                 self.open_groups.append(_Group(
                     self._next_gid, [r], shape=r.shape, sampler=r.sampler,
@@ -624,6 +706,10 @@ class RequestScheduler:
                 open_embeds.append(np.asarray(r.pooled)[None])
                 backlog += per_group     # each seeded group deepens the
                 #                          queue the next verdict sees
+                gid, seeded = self.open_groups[-1].gid, True
+            if tr is not None:
+                tr.instant("request.group", now, pid=PID_REQUESTS,
+                           tid=r.rid, gid=gid, seeded=seeded)
         return notices
 
     # -- launch ----------------------------------------------------------
@@ -674,12 +760,34 @@ class RequestScheduler:
         g.cbar = group_mean(cond[None], g.mask)               # (1, Lc, dc)
         g.centroid = np.mean(np.stack([m.pooled for m in g.members]), 0)
         self.occupancy.append(N / self.group_size)
+        self._h_occupancy.observe(N / self.group_size)
         self.stats["nfe_independent"] += 2.0 * N * T
+        tr = self.tracer
+        if tr is not None:
+            # the open group's dwell from seed to launch
+            tr.span("group.hold", g.t_open, now - g.t_open,
+                    pid=PID_GROUPS, tid=g.gid, qos=g.qos,
+                    waited_ticks=self.ticks - g.created_tick)
         entry = None
         if self.trunk_cache is not None and g.n_shared > 0:
+            cs = self.trunk_cache.stats
+            pre = (cs["exact_hits"], cs["hits_host"])
             entry = self.trunk_cache.lookup(
                 g.centroid, g.beta, self._cfg_key(g), g.shape,
                 payload="trunk")
+            if tr is not None:
+                # the lookup's kind (exact key, similarity, miss) and the
+                # tier that served it, read from the cache's own counters
+                if entry is None:
+                    tr.instant("cache.miss", now, pid=PID_GROUPS,
+                               tid=g.gid)
+                else:
+                    kind = ("cache.exact" if cs["exact_hits"] > pre[0]
+                            else "cache.ann")
+                    tier = ("host" if cs["hits_host"] > pre[1]
+                            else "hbm")
+                    tr.instant(kind, now, pid=PID_GROUPS, tid=g.gid,
+                               tier=tier)
         if entry is not None:
             # cross-batch trunk hit: skip the shared phase, fork straight
             # into branching from the cached branch-point latent (on the
@@ -705,6 +813,10 @@ class RequestScheduler:
                 g.state = "branch"
             else:
                 g.state = "shared"
+        if tr is not None:
+            tr.instant("group.launch", now, pid=PID_GROUPS, tid=g.gid,
+                       n=N, beta=g.beta, n_shared=g.n_shared, qos=g.qos,
+                       cache_hit=g.cache_hit, state=g.state)
         self.open_groups.remove(g)
         self.inflight.append(g)
 
@@ -716,26 +828,37 @@ class RequestScheduler:
         compact copies."""
         if self.trunk_cache is None:
             return
-        self.trunk_cache.insert(TrunkEntry(
+        stored = self.trunk_cache.insert(TrunkEntry(
             z=g.carry.z.clone(), eps_prev=g.carry.eps_prev.clone(),
             step_idx=g.n_shared, beta_bucket=g.beta, rng_fold=g.gid,
             centroid=g.centroid, cfg_key=self._cfg_key(g),
             payload="trunk"), shape=g.shape)
+        if self.tracer is not None:
+            self.tracer.instant("cache.store", self._tick_now,
+                                pid=PID_GROUPS, tid=g.gid,
+                                stored=bool(stored))
 
-    def _count_launch(self, rows: int, pad_rows: int,
+    def _count_launch(self, rows: int, pad_rows: int, phase: str = "",
+                      n_steps: int = 0, groups: int = 1,
                       shape: Optional[Tuple[int, ...]] = None) -> None:
         """Every segment launch, packed or per-group, lands here once: the
-        launch ledger and the per-shape one."""
+        launch ledger, the per-shape one and the trace's ``phase.*``
+        launch span, which therefore never disagree."""
         self.stats["launches"] += 1
         self.stats["pack_rows"] += rows
         self.stats["pack_pad_rows"] += pad_rows
-        if shape:
+        skey = "x".join(map(str, shape)) if shape else None
+        if skey is not None:
             d = self.shape_stats.setdefault(
-                "x".join(map(str, shape)),
-                {"launches": 0, "rows": 0, "pad_rows": 0})
+                skey, {"launches": 0, "rows": 0, "pad_rows": 0})
             d["launches"] += 1
             d["rows"] += rows
             d["pad_rows"] += pad_rows
+        if self.tracer is not None and phase:
+            kw = {"shape": skey} if skey is not None else {}
+            self.tracer.launch_span(f"phase.{phase}", rows=rows,
+                                    pad_rows=pad_rows, n_steps=n_steps,
+                                    groups=groups, **kw)
 
     def _after_segment(self, g: _Group, s: int) -> None:
         """Post-advance NFE accounting + phase transitions (NFE counts the
@@ -747,6 +870,10 @@ class RequestScheduler:
                 self._store_trunk(g)
                 g.carry = fork_carry(g.carry, len(g.members))
                 g.state = "branch"
+                if self.tracer is not None:
+                    self.tracer.instant("group.fork", self._tick_now,
+                                        pid=PID_GROUPS, tid=g.gid,
+                                        step_idx=g.n_shared)
         else:
             g.nfe += branch_phase_nfe(g.mask, s,
                                       self.sage.shared_uncond_cfg)
@@ -773,14 +900,16 @@ class RequestScheduler:
             s = min(self.slice_steps, g.n_shared - g.steps_done)
             g.carry = self._shared_runner(s, g.sampler)(
                 carry, g.cbar, null, grid)
-            self._count_launch(1, 0, g.shape)
+            self._count_launch(1, 0, phase="shared", n_steps=s,
+                               shape=g.shape)
         else:
             s = min(self.slice_steps, g.total_steps - g.steps_done)
             fork = torch.tensor(g.n_shared, device=self.device)
             g.carry = self._branch_runner(s, g.sampler)(
                 carry, g.cond_flat, g.mask.to(self.device), null, fork,
                 grid)
-            self._count_launch(len(g.members), 0, g.shape)
+            self._count_launch(len(g.members), 0, phase="branch",
+                               n_steps=s, shape=g.shape)
         self._after_segment(g, s)
         g.retries = 0
         return True
@@ -812,6 +941,9 @@ class RequestScheduler:
             s = key.n_steps
             if self.faults is not None and self.faults.launch_fails():
                 self.stats["launch_faults"] += 1
+                if self.tracer is not None:
+                    self.tracer.exec_mark("launch.fault", phase=key.phase,
+                                          groups=len(groups))
                 failed.extend(groups)
                 continue
             if key.phase == "shared":
@@ -821,7 +953,9 @@ class RequestScheduler:
                           packing.pack_grid(groups, self.sched.T
                                             ).to(self.device))
                 packing.unpack_shared(out, groups)
-                self._count_launch(len(groups), 0, key.shape)
+                self._count_launch(len(groups), 0, phase="shared",
+                                   n_steps=s, groups=len(groups),
+                                   shape=key.shape)
             else:
                 carry, cond, mask, fork = packing.pack_branch(
                     groups, self.group_size)
@@ -831,9 +965,9 @@ class RequestScheduler:
                           packing.pack_grid(groups, self.sched.T,
                                             self.group_size).to(self.device))
                 packing.unpack_branch(out, groups, self.group_size)
-                self._count_launch(*packing.pad_stats(groups,
-                                                      self.group_size),
-                                   key.shape)
+                rows, pads = packing.pad_stats(groups, self.group_size)
+                self._count_launch(rows, pads, phase="branch", n_steps=s,
+                                   groups=len(groups), shape=key.shape)
             for g in groups:
                 seg_len[g.gid] = s
         for g in todo:
@@ -857,17 +991,26 @@ class RequestScheduler:
         ``status='shed'`` and the NFE already spent moves to
         ``nfe_wasted``."""
         out: List[Completed] = []
+        tr = self.tracer
         for g in failed:
             g.retries += 1
             if g.retries <= self.max_retries:
                 self.stats["retries"] += 1
                 g.next_try_tick = self.ticks + min(2 ** (g.retries - 1), 8)
+                if tr is not None:
+                    tr.instant("group.retry", now, pid=PID_GROUPS,
+                               tid=g.gid, attempt=g.retries,
+                               next_try_tick=g.next_try_tick)
                 continue
             self.inflight.remove(g)
             self.stats["shed_faulted"] += len(g.members)
             self.stats["nfe_wasted"] += g.nfe
             for r in g.members:
                 self._cstat(r.qos, "shed")
+                if tr is not None:
+                    tr.instant("request.shed_faulted", now,
+                               pid=PID_REQUESTS, tid=r.rid, gid=g.gid,
+                               qos=r.qos)
                 out.append(Completed(
                     prompt=r.prompt, image=None, group_id=g.gid,
                     nfe_share=0.0, latency=now - r.t_arrival, qos=r.qos,
@@ -887,11 +1030,18 @@ class RequestScheduler:
         imgs = self._decode(g.carry.z)
         self.stats["nfe"] += g.nfe
         self.stats["completed"] += len(g.members)
+        tr = self.tracer
         done = []
         for i, r in enumerate(g.members):
             status = "degraded" if r.degraded else "ok"
             lat = now - r.t_arrival if record_latency else 0.0
+            if tr is not None:
+                tr.span("request.complete", r.t_arrival, lat,
+                        pid=PID_REQUESTS, tid=r.rid, gid=g.gid,
+                        qos=r.qos, status=status, tier=r.tier,
+                        cache_hit=g.cache_hit)
             if record_latency:
+                self._h_latency.observe(lat)
                 self.latencies.append(lat)
                 self.class_latencies.setdefault(
                     r.qos, deque(maxlen=self._stat_window)).append(lat)
@@ -1009,6 +1159,10 @@ class RequestScheduler:
                 g.preempted = True
                 self.stats["preemptions"] += 1
                 self._cstat(g.qos, "preemptions")
+                if self.tracer is not None:
+                    self.tracer.instant("group.preempt", now,
+                                        pid=PID_GROUPS, tid=g.gid,
+                                        qos=g.qos)
         return slots
 
     def _select_todo(self, now: float) -> List[_Group]:
@@ -1032,6 +1186,10 @@ class RequestScheduler:
                 if g.preempted:
                     g.preempted = False
                     self.stats["resumes"] += 1
+                    if self.tracer is not None:
+                        self.tracer.instant("group.resume", now,
+                                            pid=PID_GROUPS, tid=g.gid,
+                                            qos=g.qos)
                 g.starved_ticks = 0
             else:
                 g.starved_ticks += 1
@@ -1048,19 +1206,33 @@ class RequestScheduler:
         adaptive = (self.sage.adaptive_branch if adaptive is None
                     else adaptive)
         self.ticks += 1
+        self._tick_now = now
+        tr = self.tracer
+        if tr is not None:
+            tr.tick_begin(now, self.ticks)
         self._arrival_rate = (0.5 * self._arrivals_since_tick
                               + 0.5 * self._arrival_rate)
         self._arrivals_since_tick = 0
         if self.faults is not None and self.faults.tick_stalls():
             # a stalled tick is lost time: no admission, launch or segment
             self.stats["stalled_ticks"] += 1
+            if tr is not None:
+                tr.exec_mark("tick.stall")
+                tr.tick_end(stalled=True)
             return []
+        if tr is not None:
+            tr.phase_begin("admit")
         done: List[Completed] = self._admit(now)
-        self.queue_depth.append(sum(len(g.members)
-                                    for g in self.open_groups))
+        depth = sum(len(g.members) for g in self.open_groups)
+        self.queue_depth.append(depth)
+        self._h_queue.observe(depth)
+        if tr is not None:
+            tr.phase_begin("launch")
         ctx = self._launch_context(now, adaptive)
         for g in self.policy.launches(list(self.open_groups), ctx):
             self._launch(g, now, adaptive)
+        if tr is not None:
+            tr.phase_begin("advance")
         todo = self._select_todo(now)
         failed: List[_Group] = []
         if self.packed:
@@ -1070,11 +1242,15 @@ class RequestScheduler:
             for g in todo:
                 if not self._advance(g):
                     failed.append(g)
+        if tr is not None:
+            tr.phase_begin("complete")
         done.extend(self._handle_failures(failed, now))
         for g in todo:
             if g.state == "done":
                 done.extend(self._complete(g, now))
                 self.inflight.remove(g)
+        if tr is not None:
+            tr.tick_end(completions=len(done))
         return done
 
     def drain(self, now: Optional[float] = None,
@@ -1106,6 +1282,7 @@ class RequestScheduler:
         if not prompts:
             return []
         now = self._now(None)
+        self._tick_now = now
         adaptive = (self.sage.adaptive_branch if adaptive is None
                     else adaptive)
         conds, pooled = self._embed(prompts)
@@ -1162,12 +1339,13 @@ class RequestScheduler:
     # -- reporting -------------------------------------------------------
     @property
     def cost_saving(self) -> float:
-        return 1.0 - _ratio(self.stats["nfe"], self.stats["nfe_independent"],
-                            default=1.0)
+        return 1.0 - safe_ratio(self.stats["nfe"],
+                                self.stats["nfe_independent"], default=1.0)
 
     def summary(self) -> Dict[str, float]:
         """End-of-run rollup, the JAX scheduler's keys (with a trunk cache,
-        its ``cache_*`` keys too); zero-denominator ratios report 0.0."""
+        its ``cache_*`` keys too): a view of the registry-homed counters;
+        zero-denominator ratios report 0.0 (``safe_ratio``)."""
         lat = np.asarray(self.latencies, np.float64)
         out = {
             "requests": self.stats["requests"],
@@ -1175,8 +1353,8 @@ class RequestScheduler:
             "nfe": self.stats["nfe"],
             "nfe_independent": self.stats["nfe_independent"],
             "nfe_saved_cache": self.stats["nfe_saved_cache"],
-            "nfe_per_request": _ratio(self.stats["nfe"],
-                                      self.stats["completed"]),
+            "nfe_per_request": safe_ratio(self.stats["nfe"],
+                                          self.stats["completed"]),
             "cost_saving": self.cost_saving,
             "latency_p50": float(np.percentile(lat, 50)) if lat.size else 0.0,
             "latency_p95": float(np.percentile(lat, 95)) if lat.size else 0.0,
@@ -1188,9 +1366,10 @@ class RequestScheduler:
             # launches_per_tick is the dispatch pressure packing collapses;
             # pad_waste what it pays (the share of launched rows that pad)
             "launches": self.stats["launches"],
-            "launches_per_tick": _ratio(self.stats["launches"], self.ticks),
-            "pad_waste": _ratio(self.stats["pack_pad_rows"],
-                                self.stats["pack_rows"]),
+            "launches_per_tick": safe_ratio(self.stats["launches"],
+                                            self.ticks),
+            "pad_waste": safe_ratio(self.stats["pack_pad_rows"],
+                                    self.stats["pack_rows"]),
         }
         for k in ("shed", "shed_faulted", "degraded", "rejected_expired",
                   "preemptions", "resumes", "retries", "launch_faults",
@@ -1199,8 +1378,8 @@ class RequestScheduler:
             out[k] = self.stats[k]
         # goodput: deadline-met completions
         out["goodput"] = self.stats["deadline_met"]
-        out["goodput_per_tick"] = _ratio(self.stats["deadline_met"],
-                                         self.ticks)
+        out["goodput_per_tick"] = safe_ratio(self.stats["deadline_met"],
+                                             self.ticks)
         out["arrival_rate"] = self._arrival_rate
         out["backlog_ticks"] = self._backlog_ticks()
         for q, cs in sorted(self.class_stats.items()):

@@ -55,6 +55,7 @@ from repro_torch.serving.faults import (FaultPlan, _sorted_leaves, array_crc,
                                         corrupt_array)
 from repro_torch.serving.kvcache import _map, cache_bytes
 from repro_torch.serving.policies import CacheAdmission, make_cache_admission
+from repro_torch.serving.telemetry import safe_ratio
 
 HBM, HOST = "hbm", "host"
 
@@ -324,5 +325,5 @@ class TrunkCache:
 
     @property
     def hit_rate(self) -> float:
-        n = self.stats["hits"] + self.stats["misses"]
-        return self.stats["hits"] / n if n else 0.0
+        return safe_ratio(self.stats["hits"],
+                          self.stats["hits"] + self.stats["misses"])

@@ -33,6 +33,7 @@ from repro_torch.serving import packing
 from repro_torch.serving.engine import SageServingEngine
 from repro_torch.serving.faults import FaultPlan
 from repro_torch.serving.scheduler import RequestScheduler, default_noise
+from repro_torch.serving.telemetry import Tracer
 from repro_torch.serving.trunk_cache import TrunkCache
 
 from test_torch_streaming import (CS, RECORD, _smoke_modules,  # noqa: F401
@@ -78,8 +79,10 @@ def _ledger(cache):
 def serve_passes(sampler, passes=PASSES):
     """Trace C on ``sampler`` through one JAX and one port scheduler, the
     ``passes`` in turn (each its own cache, the clock moved on 100 between
-    passes).  Returns {pass: {"jax"/"port": (outcome, records, summary,
-    cache ledger, 2-D packs, cumulative stats)}}."""
+    passes; the LSH pass with a tracer on each side).  Returns {pass:
+    {"jax"/"port": (outcome, records, summary, cache ledger, 2-D packs,
+    cumulative stats), "jax_tracer"/"port_tracer": the pass's tracer or
+    None}}."""
     import jax
     import jax.numpy as jnp
     from repro import serving as jax_serving
@@ -92,6 +95,7 @@ def serve_passes(sampler, passes=PASSES):
     from repro.serving.ann_index import LshIndex as JaxLsh
     from repro.serving.faults import FaultPlan as JaxFaultPlan
     from repro.serving.scheduler import RequestScheduler as JaxScheduler
+    from repro.serving.telemetry import Tracer as JaxTracer
     from repro.serving.trunk_cache import TrunkCache as JaxCache
     import repro.serving.packing  # noqa: F401  (the module spied on)
 
@@ -140,10 +144,13 @@ def serve_passes(sampler, passes=PASSES):
     for name in passes:
         out[name] = {}
         pair = caches[name]()
-        for side, sched, cache, mod in (
-                ("jax", js, pair[0], jax_serving.packing),
-                ("port", ps, pair[1], packing)):
+        for side, sched, cache, mod, tracer in (
+                ("jax", js, pair[0], jax_serving.packing, JaxTracer),
+                ("port", ps, pair[1], packing, Tracer)):
             sched.trunk_cache = cache
+            # the LSH pass traced (chip_smoke.STREAM_TRACE_COUNTS["C"])
+            sched.tracer = tracer() if name == "lsh" else None
+            out[name][f"{side}_tracer"] = sched.tracer
             ticks0, stats0 = sched.ticks, dict(sched.stats)
             with CS.count_2d_grids(mod) as grids:
                 done, end = CS.drive_stream(sched, spec, LATENT, CHANNELS,
@@ -190,6 +197,27 @@ def test_trace_c_stats_summary_and_cache_ledgers_equal_jax(passes, name):
     assert pledger == jledger
     assert pgrids == jgrids
     assert ("cache_hits" in psum) == (name != "nocache")
+
+
+def test_trace_c_lsh_trace_equals_jax_and_stream_trace_counts(passes):
+    """The LSH pass's trace on the port is the JAX tracer's, event for
+    event (cache.exact / cache.miss / cache.store among them), reconciled
+    with the pass's ledger and its cache; ``chip_smoke.
+    STREAM_TRACE_COUNTS["C"]`` is its counts."""
+    jt, pt = passes["lsh"]["jax_tracer"], passes["lsh"]["port_tracer"]
+    assert passes["scan"]["port_tracer"] is None
+    assert pt.to_chrome() == jt.to_chrome()
+    assert jt.counts() == CS.STREAM_TRACE_COUNTS["C"]
+    stats0 = passes["scan"]["port"][5]
+    stats = passes["lsh"]["port"][5]
+    ledger = {k: stats[k] - stats0[k] for k in stats}
+    cache = passes["lsh"]["port"][3][0]
+    ledger.update(ticks=passes["lsh"]["port"][0]["ticks"],
+                  cache_hits=cache["hits"],
+                  cache_exact_hits=cache["exact_hits"],
+                  cache_hits_hbm=cache["hits_hbm"],
+                  cache_hits_host=cache["hits_host"])
+    assert CS.reconcile(pt.counts(), ledger, pt.events) == []
 
 
 def test_trace_c_puts_2d_grids_on_both_phases(passes):

@@ -350,6 +350,38 @@ def test_trace_o_stats_and_summary_equal_jax(trace_o):
     assert ps.faults.queries == js.faults.queries
 
 
+def test_trace_o_trace_equals_jax_and_stream_trace_counts(trace_o):
+    """The port's tracer gives the JAX tracer's Chrome trace of trace O
+    (sheds, retries, a stall, preemptions and resumes among its events),
+    reconciled with ``summary()``; ``chip_smoke.STREAM_TRACE_COUNTS["O"]``
+    is its counts."""
+    js, _, ps, _, _ = trace_o
+    assert ps.tracer.to_chrome() == js.tracer.to_chrome()
+    assert js.tracer.counts() == CS.STREAM_TRACE_COUNTS["O"]
+    assert CS.reconcile(ps.tracer.counts(), ps.summary(),
+                        ps.tracer.events) == []
+
+
+def test_trace_o_untraced_equals_the_traced_run(trace_o):
+    """The default path, no tracer handed in, serves trace O (sheds,
+    retries, a stall, preemptions, resumes) as the traced run did: the
+    same records, bitwise images, ``stats``, ``summary()`` and
+    ``chip_smoke.STREAM_EXPECTED["O"]``."""
+    _, _, ps, pdone, port = trace_o
+    plain = port()
+    assert plain.tracer is None
+    done, _ = CS.drive_stream(plain, "O", plain.cfg.latent_size,
+                              plain.cfg.latent_channels)
+    assert records(done) == records(pdone)
+    for a, b in zip(done, pdone):
+        assert (a.image is None) == (b.image is None)
+        if a.image is not None:
+            np.testing.assert_array_equal(a.image, b.image)
+    assert plain.stats == ps.stats
+    assert plain.summary() == ps.summary()
+    assert CS.stream_outcome(plain, done, 8) == CS.STREAM_EXPECTED["O"]
+
+
 def test_trace_o_outcome_is_stream_expected(trace_o):
     """``chip_smoke.STREAM_EXPECTED["O"]``, the JAX scheduler's outcome and
     the port's, reaches every overload path the trace is for."""

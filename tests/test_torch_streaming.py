@@ -31,6 +31,7 @@ from repro_torch.models.dit import DiT
 from repro_torch.models.vae import VAEDecoder
 from repro_torch.serving.engine import SageServingEngine
 from repro_torch.serving.scheduler import RequestScheduler
+from repro_torch.serving.telemetry import Tracer
 
 ROOT = Path(__file__).resolve().parents[1]
 RTOL, ATOL = 1e-3, 1e-3          # as tests/test_torch_serving.py
@@ -80,9 +81,10 @@ def randomized(init, *args, seed):
 
 def serve_both(trace, **over):
     """``trace`` served by the JAX scheduler and by the port's on the CPU,
-    f32 smoke config, bridged weights, JAX-drawn noise.  Returns (JAX
-    scheduler, its records, port scheduler, its records, a function that
-    builds another port scheduler on the same modules and noise)."""
+    f32 smoke config, bridged weights, JAX-drawn noise, each with a tracer
+    (``.tracer``).  Returns (JAX scheduler, its records, port scheduler,
+    its records, a function that builds another port scheduler on the same
+    modules and noise)."""
     import jax
     import jax.numpy as jnp
     from repro.config import SageConfig as JaxSageConfig
@@ -93,6 +95,7 @@ def serve_both(trace, **over):
     from repro.models import vae as jax_vae
     from repro.serving.faults import FaultPlan as JaxFaultPlan
     from repro.serving.scheduler import RequestScheduler as JaxScheduler
+    from repro.serving.telemetry import Tracer as JaxTracer
     from repro_torch.serving.faults import FaultPlan
 
     spec = CS.STREAM_TRACES[trace]
@@ -114,7 +117,7 @@ def serve_both(trace, **over):
                       jax.tree.map(jnp.asarray, w["dit"]),
                       jax.tree.map(jnp.asarray, w["text"]), jtc,
                       vae_params=jax.tree.map(jnp.asarray, w["vae"]),
-                      group_size=4, **jkw)
+                      group_size=4, tracer=JaxTracer(), **jkw)
     jdone, _ = CS.drive_stream(js, trace, jcfg.latent_size,
                                jcfg.latent_channels)
 
@@ -135,7 +138,7 @@ def serve_both(trace, **over):
         if "faults" in spec and "faults" not in more:
             pkw["faults"] = FaultPlan(**spec["faults"])
         return eng.streaming_scheduler(**pkw)
-    ps = port()
+    ps = port(tracer=Tracer())
     pdone, _ = CS.drive_stream(ps, trace, tcfg.latent_size,
                                tcfg.latent_channels)
     return js, jdone, ps, pdone, port
@@ -184,6 +187,18 @@ def test_trace_h_outcome_is_stream_expected(trace_h):
     want = CS.STREAM_EXPECTED["H"]
     assert CS.stream_outcome(js, jdone, 8) == want
     assert CS.stream_outcome(ps, pdone, 8) == want
+
+
+def test_trace_h_trace_equals_jax_and_stream_trace_counts(trace_h):
+    """The port's tracer gives the JAX tracer's Chrome trace of trace H,
+    event for event, reconciled with ``summary()``;
+    ``chip_smoke.STREAM_TRACE_COUNTS["H"]`` is its counts, which the
+    stream phase's traced full-width pass must give."""
+    js, _, ps, _, _ = trace_h
+    assert ps.tracer.to_chrome() == js.tracer.to_chrome()
+    assert js.tracer.counts() == CS.STREAM_TRACE_COUNTS["H"]
+    assert CS.reconcile(ps.tracer.counts(), ps.summary(),
+                        ps.tracer.events) == []
 
 
 def test_trace_h_runner_keys_equal_jax(trace_h):
