@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--parent DIR]
 
-Run from the root of a checkout.  Seven phases; any failure exits non-zero
+Run from the root of a checkout.  Eight phases; any failure exits non-zero
 without the result line:
 
 1. build — compile the CUDA kernels under ``src/repro_torch/csrc`` with
@@ -116,6 +116,20 @@ without the result line:
    caches bitwise the miss's), with the CRC, spill and promotion
    milliseconds of a payload.  One trunk prefill and the replayed decode
    loop are then traced, each trace held to the counts;
+5b. train — the training path (``phase_train``) at the full ``sage-dit``
+   width (f32 master weights, bf16 activations, remat, the plain attention
+   route: the kernels have no backward): three SAGE steps (Eq. 3, K x N =
+   4 x 3, 28 denoiser rows a step) full fine-tune with AdamW, three with
+   LoRA rank 8, one Standard-FT step at B = 12, each with its step walls,
+   peak memory, loss parts and FLOPs (``torch.utils.flop_counter``) beside
+   its floor at the bf16 peak; finite losses, every trainable leaf moved,
+   LoRA's base bitwise unchanged and every ``b`` off zero.  Then remat
+   against none at 3 rows (the loss and every gradient), a checkpoint of
+   CUDA tensors (a bf16 leaf, a zero-size one) restored bitwise, the
+   smoke f32 card-vs-CPU reference (three steps full and LoRA: metrics
+   and trained leaves within ``TRAIN_METRIC_RTOL`` / ``TRAIN_PARAM_ATOL``),
+   no kernel launched, and ``repro_torch.examples.train_sage --steps 20``
+   at ``sage-dit-100m`` in a child process whose checkpoint is restored;
 6. reference — each path at smoke size on the card against the plain CPU
    path: equal groups, NFE, launches and token-step counts, images and
    logits within tolerance; the stream traces the same way (equal
@@ -3656,6 +3670,413 @@ def _reference_mamba2(failures):
                         f" err={err:.3e})")
 
 
+# the training phase (slice 12): the example's groups (K x N = 4 x 3, one
+# fused denoiser call of K (2N + 1) = 28 rows a step), AdamW at 3e-4 for a
+# full fine-tune, 1e-3 for LoRA at rank 8, three steps each; the
+# Standard-FT step at B = 12 rows
+TRAIN_K, TRAIN_N, TRAIN_STEPS = 4, 3, 3
+TRAIN_LR, TRAIN_LORA_LR, TRAIN_RANK, STANDARD_B = 3e-4, 1e-3, 8, 12
+TRAIN_EXAMPLE_STEPS = 20
+# card against CPU at smoke size in f32 (TF32 off): the bars of the CPU
+# parity tests against JAX (tests/test_torch_train.py): metrics within
+# 1e-4 relative, parameters within 0.05 x lr x steps (AdamW flips the sign
+# of an update where a gradient is ~0)
+TRAIN_METRIC_RTOL, TRAIN_PARAM_ATOL = 1e-4, 0.05
+# remat against no remat at full width in bf16: the same kernels recompute
+# the same values; gradients held within 1e-3 of their largest element
+REMAT_GRAD_TOL = 1e-3
+
+
+def _train_base(cfg, dev, seed):
+    """A DiT's weights in the trainer's JAX layout, the zero-initialised
+    gates and norms given seeded values (every branch trains), built on
+    ``dev``."""
+    import torch
+    from repro_torch.models import dit as tdit
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    model = tdit.DiT(cfg, device=dev, generator=gen)
+    _randomize_zero_init(model, gen)
+    return tdit.stacked_params(model)
+
+
+def _train_batch(cfg, k, n, dev, seed):
+    """A (K, N) group batch (the last member of the last group padded out)
+    from a CPU generator, on ``dev``."""
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    lat = (cfg.latent_size, cfg.latent_size, cfg.latent_channels)
+    mask = torch.ones((k, n))
+    mask[-1, -1] = 0.0
+    return {"z": torch.randn((k, n) + lat, generator=g).to(dev),
+            "cond": torch.randn((k, n, cfg.cond_len, cfg.cond_dim),
+                                generator=g).to(dev),
+            "mask": mask.to(dev)}
+
+
+def _train_steps(step, state, batch, draws, sync=True, after_first=None):
+    """Run ``step`` over ``draws``: the final state, the metrics as floats
+    and each step's wall (host clock, synchronised on the card).
+    ``after_first(state)`` sees the state after the first step (no state
+    is kept beyond the step that replaces it)."""
+    import torch
+    metrics, walls = [], []
+    for i, d in enumerate(draws):
+        if sync:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch, d)
+        if sync:
+            torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        metrics.append({k: float(v) for k, v in m.items()})
+        if i == 0 and after_first is not None:
+            after_first(state)
+    return state, metrics, walls
+
+
+def _step_flops(step, state, batch, draws):
+    """FLOPs of one train step (forward, remat's recompute, backward;
+    ``torch.utils.flop_counter``'s products, the elementwise work left
+    out, which only lowers the floor); the step's result is dropped."""
+    from torch.utils.flop_counter import FlopCounterMode
+    with FlopCounterMode(display=False) as fc:
+        step(state, batch, draws)
+    return fc.get_total_flops()
+
+
+def _finite(metrics):
+    return all(math.isfinite(v) for m in metrics for v in m.values())
+
+
+def _train_report(label, rows, n_params, n_train, walls, peak, metrics,
+                  flops):
+    floor_s = flops / PEAK_FLOPS["bfloat16"]
+    steady = walls[1:] or walls
+    log(f"[train:{label}] {rows} denoiser rows a step, params {n_params}, "
+        f"trainable {n_train}; step walls s {[round(w, 4) for w in walls]} "
+        f"(steps 2+: {sum(steady) / len(steady):.4f} s); peak "
+        f"{peak / 2**30:.2f} GiB (max_memory_allocated); FLOPs a step "
+        f"{flops:.6e} (flop_counter), floor {floor_s * 1e3:.2f} ms at "
+        f"{PEAK_FLOPS['bfloat16'] / 1e12:.0f} TFLOP/s, wall / floor "
+        f"{sum(steady) / len(steady) / floor_s:.2f}; {_SMI}")
+    for i, m in enumerate(metrics):
+        log(f"[train:{label}] step {i + 1}: "
+            + ", ".join(f"{k} {v:.6g}" for k, v in m.items()))
+
+
+def _full_width_sage(failures, cfg, base, sched, sage, dev, lora_rank):
+    """Three SAGE steps at full width with remat, full fine-tune or LoRA;
+    checks and the report line."""
+    import torch
+    from repro_torch import seeded_generator
+    from repro_torch import tree as tu
+    from repro_torch.config import OptimConfig
+    from repro_torch.core import trainer
+    label = f"sage-lora{lora_rank}" if lora_rank else "sage-full"
+    lr = TRAIN_LORA_LR if lora_rank else TRAIN_LR
+    opt = OptimConfig(lr=lr)
+    K, N = TRAIN_K, TRAIN_N
+    lat = (cfg.latent_size, cfg.latent_size, cfg.latent_channels)
+    batch = _train_batch(cfg, K, N, dev, seed=71)
+    draws = [trainer.sage_step_draws(seeded_generator(72, i), sage, sched,
+                                     K, N, lat, dev)
+             for i in range(TRAIN_STEPS + 1)]
+    # a host copy of the base (not counted in the card's peak): LoRA must
+    # leave it bitwise as it was
+    base_copy = tu.tree_map(lambda x: x.cpu(), base) if lora_rank else None
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = trainer.init_state(cfg, opt, seed=73, lora_rank=lora_rank,
+                               base_params=base, device=dev)
+    step = trainer.make_sage_train_step(cfg, sage, sched, opt,
+                                        lora_rank=lora_rank, remat=True)
+    key = "lora" if lora_rank else "params"
+    start = state[key]          # a step writes nothing in place
+    unmoved = []
+
+    def check_moved(s):
+        unmoved.extend(tu.keystr(p) for (p, a), b in zip(
+            tu.flatten_with_path(start), tu.leaves(s[key]))
+            if torch.equal(a, b))
+
+    # every trainable leaf has a gradient: AdamW moves a leaf exactly when
+    # its gradient is not all zero.  LoRA's a gets none while b = 0 (the
+    # first step), so its leaves are checked after the last step
+    final, metrics, walls = _train_steps(
+        step, state, batch, draws[:TRAIN_STEPS],
+        after_first=None if lora_rank else check_moved)
+    if lora_rank:
+        check_moved(final)
+    peak = torch.cuda.max_memory_allocated()
+    del state
+    flops = _step_flops(step, final, batch, draws[-1])
+    n_params = sum(x.numel() for x in tu.leaves(base))
+    n_train = sum(x.numel() for x in tu.leaves(final[key]))
+    _train_report(label, K * (2 * N + 1), n_params, n_train, walls, peak,
+                  metrics, flops)
+    if not _finite(metrics):
+        failures.append(f"train {label}: a loss or gnorm is not finite: "
+                        f"{metrics}")
+    if unmoved:
+        failures.append(f"train {label}: {len(unmoved)} trainable leaves "
+                        f"got no gradient: {unmoved[:8]}")
+    if lora_rank:
+        changed = [tu.keystr(p) for (p, a), b in zip(
+            tu.flatten_with_path(base_copy), tu.leaves(final["params"]))
+            if not torch.equal(a, b.cpu())]
+        zero_b = [k for k, ab in final["lora"].items()
+                  if not bool(ab["b"].any())]
+        log(f"[train:{label}] base weights bitwise unchanged: "
+            f"{not changed}; LoRA pairs {len(final['lora'])}, b all "
+            f"non-zero: {not zero_b}")
+        if changed or zero_b:
+            failures.append(f"train {label}: base leaves changed {changed}, "
+                            f"b still zero {zero_b}")
+    elif not any(not torch.equal(a, b) for a, b in
+                 zip(tu.leaves(start), tu.leaves(final["params"]))):
+        failures.append(f"train {label}: the weights did not move")
+    return final
+
+
+def _full_width_standard(failures, cfg, base, sched, dev):
+    import torch
+    from repro_torch import seeded_generator
+    from repro_torch import tree as tu
+    from repro_torch.config import OptimConfig
+    from repro_torch.core import trainer
+    opt = OptimConfig(lr=TRAIN_LR)
+    lat = (cfg.latent_size, cfg.latent_size, cfg.latent_channels)
+    g = torch.Generator().manual_seed(74)
+    batch = {"z": torch.randn((STANDARD_B,) + lat, generator=g).to(dev),
+             "cond": torch.randn((STANDARD_B, cfg.cond_len, cfg.cond_dim),
+                                 generator=g).to(dev)}
+    draws = [trainer.standard_step_draws(seeded_generator(75, i), sched,
+                                         (STANDARD_B,) + lat, dev)
+             for i in range(2)]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = trainer.init_state(cfg, opt, base_params=base, device=dev)
+    step = trainer.make_standard_train_step(cfg, sched, opt, remat=True)
+    final, metrics, walls = _train_steps(step, state, batch, draws[:1])
+    peak = torch.cuda.max_memory_allocated()
+    del state
+    flops = _step_flops(step, final, batch, draws[1])
+    n = sum(x.numel() for x in tu.leaves(base))
+    _train_report("standard", STANDARD_B, n, n, walls, peak, metrics, flops)
+    if not _finite(metrics):
+        failures.append(f"train standard: not finite: {metrics}")
+
+
+def _remat_check(failures, cfg, base, sched, sage, dev):
+    """One group of one member (3 rows) at full width: the objective and
+    every gradient with remat against without it."""
+    import torch
+    from repro_torch import seeded_generator
+    from repro_torch import tree as tu
+    from repro_torch.core import trainer
+    lat = (cfg.latent_size, cfg.latent_size, cfg.latent_channels)
+    batch = _train_batch(cfg, 1, 1, dev, seed=76)
+    batch["mask"] = torch.ones((1, 1), device=dev)
+    draws = trainer.sage_step_draws(seeded_generator(77, 0), sage, sched, 1,
+                                    1, lat, dev)
+    out, peaks = [], []
+    for remat in (True, False):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        (loss, _), grads = trainer.value_and_grad(
+            trainer.make_sage_loss(cfg, sage, sched, remat=remat), base,
+            None, batch, draws)
+        peaks.append(torch.cuda.max_memory_allocated())
+        out.append((float(loss), grads))
+    scale = max(float(g.abs().max()) for g in tu.leaves(out[1][1]))
+    err = max(float((a - b).abs().max()) for a, b in
+              zip(tu.leaves(out[0][1]), tu.leaves(out[1][1])))
+    bitwise = all(torch.equal(a, b) for a, b in
+                  zip(tu.leaves(out[0][1]), tu.leaves(out[1][1])))
+    log(f"[train:remat] 3 rows at full width: loss {out[0][0]!r} / "
+        f"{out[1][0]!r} (remat / none), gradients bitwise {bitwise}, max "
+        f"|diff| {err:.3e} of a largest {scale:.3e} (bar "
+        f"{REMAT_GRAD_TOL:g}); peak GiB {peaks[0] / 2**30:.2f} / "
+        f"{peaks[1] / 2**30:.2f}")
+    if (abs(out[0][0] - out[1][0]) > 1e-6 * abs(out[1][0])
+            or err > REMAT_GRAD_TOL * scale):
+        failures.append(f"train remat: loss {out[0][0]} vs {out[1][0]}, "
+                        f"gradient error {err} of {scale}")
+
+
+def _train_reference(failures, card="cuda"):
+    """Smoke size, f32: the same weights, batch and draws on the card and
+    on the CPU, three SAGE steps, full fine-tune and LoRA: every step's
+    metrics and the trained tree within the bars; LoRA's base bitwise."""
+    import torch
+    from repro_torch import seeded_generator
+    from repro_torch import tree as tu
+    from repro_torch.config import OptimConfig, SageConfig, get_config, replace
+    from repro_torch.core import lora, trainer
+    from repro_torch.core.schedule import make_schedule
+    cfg = replace(get_config("sage-dit", smoke=True), dtype="float32")
+    sage = SageConfig(total_steps=8, share_ratio=0.25)
+    lat = (cfg.latent_size, cfg.latent_size, cfg.latent_channels)
+    cpu, gpu = torch.device("cpu"), torch.device(card)
+    base = _train_base(cfg, cpu, seed=78)
+    lr = 1e-3
+    for rank in (0, 4):
+        runs = []
+        for dev in (gpu, cpu):
+            sched = make_schedule(1000, device=dev)
+            opt = OptimConfig(lr=lr)
+            params = tu.tree_map(lambda x: x.to(dev), base)
+            state = trainer.init_state(cfg, opt, lora_rank=rank,
+                                       base_params=params, device=dev)
+            if rank:
+                state["lora"] = tu.tree_map(lambda x: x.to(dev), lora.init_lora(
+                    base, rank, seeded_generator(78, 1)))
+            step = trainer.make_sage_train_step(cfg, sage, sched, opt,
+                                                lora_rank=rank)
+            batch = _train_batch(cfg, 2, 3, dev, seed=79)
+            draws = [trainer.sage_step_draws(seeded_generator(80, i), sage,
+                                             sched, 2, 3, lat, dev)
+                     for i in range(TRAIN_STEPS)]
+            final, metrics, _ = _train_steps(step, state, batch, draws,
+                                             sync=dev.type == "cuda")
+            runs.append((final, metrics))
+        (gs, gm), (cs, cm) = runs
+        key = "lora" if rank else "params"
+        m_err = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-30)
+                    for a, b in zip(gm, cm) for k in b)
+        p_err = max(float((a.cpu() - b).abs().max()) for a, b in
+                    zip(tu.leaves(gs[key]), tu.leaves(cs[key])))
+        base_same = all(torch.equal(a.cpu(), b) for a, b in
+                        zip(tu.leaves(gs["params"]), tu.leaves(base))) \
+            if rank else True
+        bar = TRAIN_PARAM_ATOL * lr * TRAIN_STEPS
+        log(f"[train:reference] smoke f32 {key} (rank {rank}), card vs CPU, "
+            f"{TRAIN_STEPS} steps: metrics max rel err {m_err:.3e} (bar "
+            f"{TRAIN_METRIC_RTOL:g}), trained leaves max abs err "
+            f"{p_err:.3e} (bar {bar:.3e} = {TRAIN_PARAM_ATOL} x lr x "
+            f"steps), LoRA base bitwise {base_same}, losses card "
+            f"{[round(m['loss'], 6) for m in gm]}")
+        if m_err > TRAIN_METRIC_RTOL or p_err > bar or not base_same:
+            failures.append(f"train reference rank {rank}: metrics {m_err}, "
+                            f"params {p_err}, base bitwise {base_same}")
+
+
+def _train_checkpoint(failures, lora_tree, weight):
+    """CUDA tensors (the LoRA tree, a bf16 weight, an int32 step and a
+    zero-size leaf) saved and restored onto the card, bitwise."""
+    import tempfile
+    import torch
+    from repro_torch import tree as tu
+    from repro_torch.checkpoint import (latest_step, restore_checkpoint,
+                                        save_checkpoint)
+    dev = weight.device
+    tree = {"lora": lora_tree, "half": weight.to(torch.bfloat16),
+            "step": torch.tensor(3, dtype=torch.int32, device=dev),
+            "marker": torch.zeros(0, device=dev)}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        save_checkpoint(tmp, 3, tree)
+        t1 = time.perf_counter()
+        got = restore_checkpoint(tmp, latest_step(tmp), tree)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    pairs = list(zip(tu.leaves(got), tu.leaves(tree)))
+    ok = all(a.dtype == b.dtype and a.device == b.device
+             and torch.equal(a, b) for a, b in pairs)
+    nbytes = sum(b.numel() * b.element_size() for _, b in pairs)
+    log(f"[train:checkpoint] {len(pairs)} leaves, {nbytes / 2**20:.1f} MiB "
+        f"(a bf16 leaf and a zero-size one), on the card: restored bitwise "
+        f"{ok}; save {t1 - t0:.3f} s, restore {t2 - t1:.3f} s")
+    if not ok:
+        failures.append("train checkpoint: a restored leaf differs")
+
+
+def _train_example(failures):
+    """``python -m repro_torch.examples.train_sage`` at ``sage-dit-100m``
+    in a child process on the card, its checkpoint restored here."""
+    import tempfile
+    import torch
+    from repro_torch import tree as tu
+    from repro_torch.checkpoint import latest_step, restore_checkpoint
+    from repro_torch.config import get_config
+    from repro_torch.models import dit as tdit
+    with tempfile.TemporaryDirectory() as tmp:
+        cmd = [sys.executable, "-m", "repro_torch.examples.train_sage",
+               "--steps", str(TRAIN_EXAMPLE_STEPS), "--ckpt", tmp]
+        t0 = time.perf_counter()
+        try:
+            run = subprocess.run(cmd, cwd=ROOT, capture_output=True,
+                                 text=True, timeout=300, env=dict(
+                                     os.environ,
+                                     PYTHONPATH=str(ROOT / "src")))
+        except subprocess.TimeoutExpired:
+            failures.append("train example: no exit within 300 s")
+            return
+        wall = time.perf_counter() - t0
+        for line in run.stdout.splitlines():
+            log(f"[train:example] {line}")
+        final = re.search(r"^final loss (\S+) \(first 10: (\S+)\)",
+                          run.stdout, re.M)
+        step = latest_step(tmp)
+        like = tdit.init_params(get_config("sage-dit-100m"),
+                                device=torch.device("cuda"))
+        restored = (restore_checkpoint(tmp, step, like)
+                    if step == TRAIN_EXAMPLE_STEPS else None)
+    finite = bool(final) and all(math.isfinite(float(x))
+                                 for x in final.groups())
+    ok_ckpt = restored is not None and all(
+        a.shape == b.shape and bool(torch.isfinite(a).all())
+        for a, b in zip(tu.leaves(restored), tu.leaves(like)))
+    log(f"[train:example] exit {run.returncode} in {wall:.1f} s (a child "
+        f"process), final loss finite {finite}, checkpoint step {step} "
+        f"restored {ok_ckpt}; {_SMI}")
+    if run.returncode != 0 or not finite or not ok_ckpt:
+        failures.append(f"train example: exit {run.returncode}, finite "
+                        f"{finite}, checkpoint {ok_ckpt}; stderr "
+                        f"{run.stderr[-2000:]}")
+
+
+def phase_train(failures):
+    """The training path at the full ``sage-dit`` width (28 layers,
+    d_model 1152, 1024 tokens; f32 master weights, bf16 activations, remat,
+    the plain attention route): three SAGE steps full fine-tune and three
+    with LoRA, one Standard-FT step, remat against none, the smoke
+    reference, a checkpoint of CUDA tensors, the example.  No kernel runs
+    under autograd: every wrapper's count must stay 0."""
+    import torch
+    from repro_torch.config import SageConfig, get_config, replace
+    from repro_torch.core.schedule import make_schedule
+    counters = _counters()
+    _reset_counts(counters)
+    dev = torch.device("cuda")
+    cfg = replace(get_config("sage-dit"), attn_impl="naive")
+    sage = SageConfig()
+    sched = make_schedule(1000, device=dev)
+    base = _train_base(cfg, dev, seed=70)
+    _full_width_sage(failures, cfg, base, sched, sage, dev, 0)
+    lora_state = _full_width_sage(failures, cfg, base, sched, sage, dev,
+                                  TRAIN_RANK)
+    _train_checkpoint(failures, lora_state["lora"],
+                      base["blocks"]["attn"]["wq"][0])
+    del lora_state
+    _full_width_standard(failures, cfg, base, sched, dev)
+    _remat_check(failures, cfg, base, sched, sage, dev)
+    del base
+    gc.collect()
+    torch.cuda.empty_cache()
+    _train_reference(failures)
+    launched = {name: fn.launches for name, fn in counters.items()}
+    log(f"[train] kernel launches in the phase: {launched} (all must be 0: "
+        f"training runs the plain routes)")
+    if any(launched.values()):
+        failures.append(f"train: kernels launched under training: "
+                        f"{launched}")
+    _train_example(failures)
+
+
 def main(argv) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -3710,6 +4131,12 @@ def main(argv) -> int:
     phase_example(failures)
     t4e = time.perf_counter()
     launches.update(phase_mamba2(failures))
+    gc.collect()
+    torch.cuda.empty_cache()
+    t5t = time.perf_counter()
+    phase_train(failures)
+    gc.collect()
+    torch.cuda.empty_cache()
     t5 = time.perf_counter()
     phase_reference(failures)
     t6 = time.perf_counter()
@@ -3719,7 +4146,8 @@ def main(argv) -> int:
     t7 = time.perf_counter()
     log(f"[time] build {t1 - t0:.1f} s, kernels {t2 - t1:.1f} s, "
         f"e2e DiT {t3 - t2:.1f} s, stream {t4 - t3:.1f} s, example "
-        f"{t4e - t4:.1f} s, e2e mamba2 {t5 - t4e:.1f} s, reference "
+        f"{t4e - t4:.1f} s, e2e mamba2 {t5t - t4e:.1f} s, train "
+        f"{t5 - t5t:.1f} s, reference "
         f"{t6 - t5:.1f} s, graph nodes {t7 - t6:.1f} s")
     if failures:
         for f in failures:

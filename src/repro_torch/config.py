@@ -1,14 +1,13 @@
 """Config system for the PyTorch port.
 
 Frozen dataclasses + a registry keyed by arch id, copied from the JAX
-package's ``repro.config`` so the port has no import of it.  Only the
-model and sampler configs the serving path reads are here; the training
-configs arrive with the training slice.
+package's ``repro.config`` so the port has no import of it: the model,
+sampler, optimizer and training configs.
 """
 from __future__ import annotations
 
 import dataclasses
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
 ATTN_GQA = "gqa"          # grouped-query attention (covers MHA/MQA)
@@ -156,6 +155,32 @@ class SageConfig:
     @property
     def branch_point(self) -> int:
         return int(round(self.total_steps * (1.0 - self.share_ratio)))
+
+
+@dataclass(frozen=True)
+class OptimConfig:
+    kind: str = "adamw"            # adamw | adafactor
+    lr: float = 1e-4
+    b1: float = 0.9
+    b2: float = 0.999
+    eps: float = 1e-8
+    weight_decay: float = 0.0
+    warmup: int = 100
+    schedule: str = "constant"     # constant | cosine
+    grad_clip: float = 1.0
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    steps: int = 100
+    seed: int = 0
+    optim: OptimConfig = field(default_factory=OptimConfig)
+    remat: bool = True
+    fsdp: bool = True              # shard params over the data axis too
+    lora_rank: int = 0             # 0 = full fine-tune
+    log_every: int = 10
+    ckpt_every: int = 0
+    ckpt_dir: str = ""
 
 
 _REGISTRY: Dict[str, Callable[[], ModelConfig]] = {}

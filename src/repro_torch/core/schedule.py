@@ -24,6 +24,12 @@ class Schedule:
     def sigma(self, t: torch.Tensor) -> torch.Tensor:
         return self.sigmas[t]
 
+    def snr_weight(self, t: torch.Tensor) -> torch.Tensor:
+        """w_t — min-SNR-style clamp of SNR (stable epsilon-loss weight)."""
+        a, s = self.alpha(t), self.sigma(t)
+        snr = (a / torch.clamp_min(s, 1e-5)) ** 2
+        return torch.clamp_max(snr, 5.0) / 5.0
+
     def to(self, device) -> "Schedule":
         return Schedule(self.alphas.to(device), self.sigmas.to(device),
                         self.T)

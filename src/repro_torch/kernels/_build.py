@@ -20,6 +20,8 @@ import tempfile
 import time
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("ddim_step.cu", "dpmpp_step.cu", "flash_attention.cu",
@@ -145,6 +147,21 @@ def load_library() -> ctypes.CDLL:
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
     return lib
+
+
+def forbid_grad(what: str, *tensors) -> None:
+    """Raise when autograd would record through a kernel wrapper: grad mode
+    is on and an input requires grad.  The kernels have no backward (as in
+    the JAX package, whose Pallas kernels have no VJP), so their outputs
+    carry no ``grad_fn`` and would cut the gradient without a word.
+    Training takes the plain routes (``attn_impl="naive"``, the reference
+    group mean); the serving path calls the kernels without autograd."""
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{what} has no backward: an input requires grad under grad "
+            f"mode.  Call it under torch.no_grad(), or differentiate "
+            f"through its plain route")
 
 
 def check(rc: int, what: str) -> None:

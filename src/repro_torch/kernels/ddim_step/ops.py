@@ -63,6 +63,7 @@ def fused_cfg_ddim_step(z, eps_u, eps_c, guidance, alphas, sigmas, t, t_next,
     rows = z.shape[0]
     t, t_next = (_timesteps(name, x, rows)
                  for name, x in (("t", t), ("t_next", t_next)))
+    _build.forbid_grad("fused_cfg_ddim_step", z, eps_u, eps_c, guidance)
     if z.device.type == "cpu":
         return fused_cfg_ddim_step_ref(z, eps_u, eps_c, guidance, alphas,
                                        sigmas, t, t_next, clip_x0=clip_x0)

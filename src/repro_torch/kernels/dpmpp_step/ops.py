@@ -35,6 +35,8 @@ def fused_cfg_dpmpp_step(z, eps_u, eps_c, eps_prev, guidance,
         raise ValueError(f"shape mismatch: {tuple(z.shape)}, "
                          f"{tuple(eps_u.shape)}, {tuple(eps_c.shape)}, "
                          f"{tuple(eps_prev.shape)}")
+    _build.forbid_grad("fused_cfg_dpmpp_step", z, eps_u, eps_c, eps_prev,
+                       guidance, a_t, s_t, a_n, s_n, lam, lam_p, lam_n)
     if z.device.type == "cpu":
         return fused_cfg_dpmpp_step_ref(z, eps_u, eps_c, eps_prev, guidance,
                                         a_t, s_t, a_n, s_n, lam, lam_p,

@@ -70,6 +70,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
         raise ValueError(f"n_heads {H} not divisible by n_kv_heads {Hkv}")
     if scale is None:
         scale = 1.0 / math.sqrt(D)
+    _build.forbid_grad("flash_attention", q, k, v)
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, window=window,
                              scale=scale)

@@ -83,6 +83,7 @@ def masked_group_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     if x.ndim < 2 or tuple(mask.shape) != tuple(x.shape[:2]):
         raise ValueError(f"mask {tuple(mask.shape)} does not match the "
                          f"(K, N) axes of x {tuple(x.shape)}")
+    _build.forbid_grad("masked_group_mean", x, mask)
     if x.device.type == "cpu":
         return masked_group_mean_ref(x, mask)
     if x.device.type != "cuda":

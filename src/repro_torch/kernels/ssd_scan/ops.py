@@ -49,6 +49,7 @@ def ssd_intra_chunk(x: torch.Tensor, dA: torch.Tensor, B_: torch.Tensor,
     if any(t.device != x.device for t in (dA, B_, C_)):
         raise ValueError("x, dA, B and C must lie on one device")
     c, Q = l // chunk, chunk
+    _build.forbid_grad("ssd_intra_chunk", x, dA, B_, C_)
     if x.device.type == "cpu":
         return ssd_tiles_ref(x, dA, B_, C_, chunk)
     if x.device.type != "cuda":
@@ -83,6 +84,7 @@ def ssd_chunked_kernel(x: torch.Tensor, dA: torch.Tensor, B_: torch.Tensor,
     one B/C group): x (b,l,h,p) already multiplied by dt; dA (b,l,h);
     B_/C_ (b,l,n); optional init_state (b,h,p,n).  Returns y (b,l,h,p) in
     x's dtype and the final state (b,h,p,n) f32."""
+    _build.forbid_grad("ssd_chunked_kernel", x, dA, B_, C_, init_state)
     b, l, h, p = x.shape
     n = B_.shape[-1]
     l0 = l

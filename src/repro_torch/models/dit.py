@@ -1,16 +1,21 @@
 """Latent DiT denoiser: patchified latent transformer, adaLN-zero timestep
 conditioning, cross-attention text conditioning (PixArt-style).
 
-eps = DiT(cfg)(z_t, t, cond)   # epsilon-prediction, z NHWC
+eps = DiT(cfg)(z_t, t, cond)   # epsilon-prediction, z NHWC (no autograd)
+
+Training runs the same body on the JAX package's parameter layout
+(:func:`forward` on :func:`stacked_params`' tree), which the optimizer,
+the LoRA adapters and the checkpoints share with it.
 """
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.config import ModelConfig
@@ -140,6 +145,16 @@ class DiT(nn.Module):
         return cast_weights_(self._cast,
                              dtype or getattr(torch, self.cfg.dtype))
 
+    def forward_grad(self, z: torch.Tensor, t: torch.Tensor,
+                     cond: torch.Tensor, cfg: Optional[ModelConfig] = None,
+                     *, remat: bool = False) -> torch.Tensor:
+        """:func:`forward` on the module's own weights, recorded by
+        autograd when grad mode is on: ``self(...)`` without the
+        ``no_grad``."""
+        params = dict(self.named_parameters(recurse=False))
+        params["blocks"] = self.blocks
+        return forward(params, cfg or self.cfg, z, t, cond, remat=remat)
+
     @torch.no_grad()
     def forward(self, z: torch.Tensor, t: torch.Tensor,
                 cond: torch.Tensor,
@@ -148,30 +163,99 @@ class DiT(nn.Module):
         -> eps (B,H,W,C) f32.  ``cfg`` (default ``self.cfg``) is a caller's
         own copy of the config, with its own attention route: a serving
         engine passes its own and never writes into the module."""
-        cfg = cfg or self.cfg
-        dtype = getattr(torch, cfg.dtype)
-        hp, wp = z.shape[1] // cfg.patch, z.shape[2] // cfg.patch
-        x = dot(patchify(cfg, z).to(dtype), self.patch_in)
-        x = x + pos_embed(cast(self.pos, dtype), cfg, hp, wp)[None]
-        temb = timestep_embedding(t)
-        temb = dot(F.silu(dot(temb, self.t_w1)), self.t_w2)       # (B, d)
-        c = dot(cond.to(dtype), self.cond_proj)                   # (B, Lc, d)
-        tmod = F.silu(temb)
-        for bp in self.blocks:
-            mod = (tmod @ bp.adaln.to(tmod.dtype)
-                   + bp.adaln_b.to(tmod.dtype))
-            sh1, sc1, g1, sh2, sc2, g2 = mod.chunk(6, dim=-1)
-            h = _mod(_ln(x), sh1.to(dtype), sc1.to(dtype))
-            x = x + g1[:, None, :].to(dtype) * attn.gqa_full(
-                bp.attn, cfg, h, causal=False)
-            hx = _ln(x) * (1.0 + cast(bp.lnx, dtype))
-            x = x + attn.gqa_full(bp.xattn, cfg, hx, causal=False, memory=c)
-            h = _mod(_ln(x), sh2.to(dtype), sc2.to(dtype))
-            x = x + g2[:, None, :].to(dtype) * apply_mlp(bp.mlp, h,
-                                                         cfg.mlp_kind)
-        fmod = (tmod @ self.final_adaln.to(tmod.dtype)
-                + self.final_adaln_b.to(tmod.dtype))
-        shf, scf = fmod.chunk(2, dim=-1)
-        x = _mod(_ln(x), shf.to(dtype), scf.to(dtype))
-        out = dot(x, self.out)
-        return unpatchify(cfg, out, (hp, wp)).float()
+        return self.forward_grad(z, t, cond, cfg)
+
+
+def stacked_params(model: DiT) -> Dict[str, object]:
+    """A copy of ``model``'s weights in the layout of the JAX package's
+    ``dit.init_params``: nested dicts of tensors, each block weight
+    stacked over a leading layer axis."""
+    with torch.no_grad():
+        tree = {k: v.detach().clone() for k, v in
+                model.named_parameters(recurse=False)}
+        tree["blocks"] = _stack([_block_tree(b) for b in model.blocks])
+    return tree
+
+
+def init_params(cfg: ModelConfig, *, device="cuda",
+                generator: Optional[torch.Generator] = None
+                ) -> Dict[str, object]:
+    """A fresh :class:`DiT`'s weights in the JAX layout
+    (:func:`stacked_params`)."""
+    return stacked_params(DiT(cfg, device=device, generator=generator))
+
+
+def _block_tree(block: nn.Module) -> Dict[str, object]:
+    return {**dict(block.named_parameters(recurse=False)),
+            **dict(block.named_children())}
+
+
+def _stack(trees: Sequence[Mapping]) -> Dict[str, object]:
+    return {k: (torch.stack([t[k].detach() for t in trees])
+                if isinstance(v, torch.Tensor)
+                else _stack([t[k] for t in trees]))
+            for k, v in trees[0].items()}
+
+
+def _unstack(tree: Mapping) -> List[Dict[str, object]]:
+    """Per-layer views of a stacked block tree (``unbind``: the gradient
+    of each leaf comes back as one stacked tensor)."""
+    parts = {k: (_unstack(v) if isinstance(v, Mapping) else v.unbind(0))
+             for k, v in tree.items()}
+    n = len(next(iter(parts.values())))
+    return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+
+
+def _layers(blocks) -> List[Mapping]:
+    if isinstance(blocks, Mapping):
+        return _unstack(blocks)
+    return [_block_tree(b) for b in blocks]
+
+
+def _block(bp: Mapping, x: torch.Tensor, tmod: torch.Tensor,
+           c: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """One adaLN-zero block: self-attention, cross-attention, MLP."""
+    dtype = x.dtype
+    mod = tmod @ bp["adaln"].to(tmod.dtype) + bp["adaln_b"].to(tmod.dtype)
+    sh1, sc1, g1, sh2, sc2, g2 = mod.chunk(6, dim=-1)
+    h = _mod(_ln(x), sh1.to(dtype), sc1.to(dtype))
+    x = x + g1[:, None, :].to(dtype) * attn.gqa_full(
+        bp["attn"], cfg, h, causal=False)
+    hx = _ln(x) * (1.0 + cast(bp["lnx"], dtype))
+    x = x + attn.gqa_full(bp["xattn"], cfg, hx, causal=False, memory=c)
+    h = _mod(_ln(x), sh2.to(dtype), sc2.to(dtype))
+    return x + g2[:, None, :].to(dtype) * apply_mlp(bp["mlp"], h,
+                                                    cfg.mlp_kind)
+
+
+def forward(params: Mapping, cfg: ModelConfig, z: torch.Tensor,
+            t: torch.Tensor, cond: torch.Tensor,
+            remat: bool = False) -> torch.Tensor:
+    """The JAX package's ``dit.forward``: z (B,H,W,C) latents at time t;
+    t (B,); cond (B,Lc,cond_dim) -> eps (B,H,W,C) f32.
+
+    ``params`` is the JAX nesting: :func:`stacked_params`' tree (block
+    weights stacked over the layer axis, the trainer's), or the module's
+    own parameters with ``blocks`` its layer list (:meth:`DiT.forward`).
+    ``remat`` recomputes each block in the backward pass
+    (``torch.utils.checkpoint``) instead of keeping its activations, as
+    ``jax.checkpoint`` does around the JAX scan's body."""
+    dtype = getattr(torch, cfg.dtype)
+    hp, wp = z.shape[1] // cfg.patch, z.shape[2] // cfg.patch
+    x = dot(patchify(cfg, z).to(dtype), params["patch_in"])
+    x = x + pos_embed(cast(params["pos"], dtype), cfg, hp, wp)[None]
+    temb = timestep_embedding(t)
+    temb = dot(F.silu(dot(temb, params["t_w1"])), params["t_w2"])  # (B, d)
+    c = dot(cond.to(dtype), params["cond_proj"])                    # (B,Lc,d)
+    tmod = F.silu(temb)
+    for bp in _layers(params["blocks"]):
+        if remat:
+            x = checkpoint(_block, bp, x, tmod, c, cfg, use_reentrant=False)
+        else:
+            x = _block(bp, x, tmod, c, cfg)
+    fmod = (tmod @ params["final_adaln"].to(tmod.dtype)
+            + params["final_adaln_b"].to(tmod.dtype))
+    shf, scf = fmod.chunk(2, dim=-1)
+    x = _mod(_ln(x), shf.to(dtype), scf.to(dtype))
+    out = dot(x, params["out"])
+    return unpatchify(cfg, out, (hp, wp)).float()

@@ -12,7 +12,8 @@ lower activation dtype, bitwise ``w.to(dtype)``, which :func:`cast` (and so
 :func:`dot`) reads instead of casting again on every call.  The copy is
 keyed on the parameter's ``_version`` and device: an in-place write to the
 weights (the weight bridge's ``copy_``, ``load_state_dict``) or a move to
-another device makes it stale, and a stale copy is never read.  A copy,
+another device makes it stale, and a stale copy is never read; nor is a
+copy read while autograd records through the parameter.  A copy,
 once made, keeps its storage: refreshing it writes in place, so a CUDA
 graph captured on it stays valid.
 """
@@ -26,7 +27,11 @@ import torch.nn.functional as F
 
 
 def cast(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """``w.to(dtype)``: its cast-once copy when it holds a current one."""
+    """``w.to(dtype)``: its cast-once copy when it holds a current one and
+    autograd is not recording through ``w`` (the copy is detached, so
+    reading it there would cut ``w``'s gradient)."""
+    if torch.is_grad_enabled() and w.requires_grad:
+        return w.to(dtype)
     held = getattr(w, "_casts", {}).get(dtype)
     if (held is not None and held[0] == w._version
             and held[1].device == w.device):

@@ -1,5 +1,5 @@
 """Weight bridge: JAX parameter pytrees (as numpy arrays) -> the port's
-modules.
+modules, and the DiT back (:func:`dit_to_jax`).
 
 The JAX package keeps parameters as nested dicts (``dit.init_params``,
 ``text_encoder.init_text``, ``vae.init_params``); hand them over as
@@ -10,6 +10,8 @@ The JAX package keeps parameters as nested dicts (``dit.init_params``,
 * the stacked leading ``blocks`` axis that ``jax.vmap(init_block)`` builds
   is split into one entry per ``nn.ModuleList`` layer;
 * VAE conv weights go from HWIO to OIHW for ``F.conv2d``;
+* a LoRA tree (``core.lora.init_lora``'s ``fold_in`` draws) crosses as it
+  is, keyed by the JAX ``keystr`` of each adapted leaf;
 * an ``LshIndex``'s hyperplanes (``jax.random`` draws, which torch cannot
   reproduce) are carried into the port's index as they are.
 
@@ -17,17 +19,20 @@ Loading is strict: a missing, extra or mis-shaped parameter raises.
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, Iterator, Mapping, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
+from repro_torch import resolve_device
+from repro_torch import tree as tu
 from repro_torch.config import ModelConfig
-from repro_torch.models.dit import DiT
-from repro_torch.models.text_encoder import TextTower
+from repro_torch.models.dit import DiT, stacked_params
+from repro_torch.models.text_encoder import ImageTower, TextTower
 from repro_torch.models.transformer import LM
-from repro_torch.models.vae import VAEDecoder
+from repro_torch.models.vae import VAEDecoder, VAEEncoder
 from repro_torch.serving.ann_index import LshIndex
 
 
@@ -81,6 +86,29 @@ def dit_from_jax(params: Mapping, cfg: ModelConfig, *,
     return model
 
 
+def dit_to_jax(model: DiT) -> Dict:
+    """The inverse of :func:`dit_from_jax`: ``model``'s weights as a
+    ``dit.init_params``-layout tree of numpy arrays, ``blocks.{i}.*``
+    stacked back over the layer axis."""
+    return tu.tree_map(lambda x: x.cpu().numpy(), stacked_params(model))
+
+
+def lora_from_jax(lora: Mapping, *, device="cuda") -> Dict:
+    """A JAX LoRA tree (``{keystr: {"a", "b"}}``) as tensors on
+    ``device``, for ``core.lora.merge`` and the trainer."""
+    device = resolve_device(device)
+    out = {}
+    for key, ab in lora.items():
+        if set(ab) != {"a", "b"}:
+            raise KeyError(f"LoRA entry {key!r} holds {sorted(ab)}, not a/b")
+        a, b = np.asarray(ab["a"]), np.asarray(ab["b"])
+        if a.shape[-1] != b.shape[-2] or a.shape[:-2] != b.shape[:-2]:
+            raise ValueError(f"LoRA entry {key!r}: a {a.shape}, b {b.shape}")
+        out[key] = {"a": torch.tensor(a, device=device),
+                    "b": torch.tensor(b, device=device)}
+    return out
+
+
 def text_from_jax(params: Mapping, cfg: ModelConfig, *,
                   device="cuda") -> TextTower:
     """A :class:`TextTower` holding ``text_encoder.init_text`` weights."""
@@ -100,6 +128,31 @@ def vae_from_jax(params: Mapping, *, device="cuda",
                        dtype=dtype)
     load_numpy(model, {f"dec.{k}": v.transpose(3, 2, 0, 1)
                        for k, v in dec.items()})
+    return model
+
+
+def vae_encoder_from_jax(params: Mapping, *, device="cuda") -> VAEEncoder:
+    """A :class:`VAEEncoder` holding the encoder half of
+    ``vae.init_params`` (HWIO convs transposed to OIHW)."""
+    enc = {k: np.asarray(v) for k, v in params["enc"].items()}
+    image_channels = enc["w0"].shape[-2]
+    latent_channels = enc["out"].shape[-1] // 2
+    model = VAEEncoder(image_channels, latent_channels, device=device)
+    load_numpy(model, {f"enc.{k}": v.transpose(3, 2, 0, 1)
+                       for k, v in enc.items()})
+    return model
+
+
+def image_from_jax(params: Mapping, *, device="cuda") -> ImageTower:
+    """An :class:`ImageTower` holding ``text_encoder.init_image`` weights
+    (sizes read off the arrays)."""
+    flat = _unstack_blocks(dict(_flatten(params)))
+    p_in, dim = flat["patch_in"].shape
+    patch = math.isqrt(p_in // 3)
+    image = math.isqrt(flat["pos"].shape[0]) * patch
+    layers = np.asarray(params["blocks"]["ln1"]).shape[0]
+    model = ImageTower(dim, patch, image, layers, device=device)
+    load_numpy(model, flat)
     return model
 
 

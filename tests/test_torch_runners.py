@@ -281,20 +281,25 @@ def test_cast_once_copy_is_bitwise_the_cast():
     w = torch.nn.Parameter(torch.randn((33, 17), generator=g) * 3)
     assert layers.cast_weights_([w], torch.float32) == 0
     assert layers.cast_weights_([w], torch.bfloat16) == 33 * 17 * 2
-    held = layers.cast(w, torch.bfloat16)
-    assert held.data_ptr() == w._casts[torch.bfloat16][1].data_ptr()
-    assert torch.equal(held, w.to(torch.bfloat16))
-    assert torch.equal(layers.cast(w.t(), torch.bfloat16).t(), held)
-    x = torch.randn((5, 33), generator=g).to(torch.bfloat16)
-    assert torch.equal(layers.dot(x, w), x @ w.to(torch.bfloat16))
-    with torch.no_grad():                        # an in-place write
-        w.mul_(0.5)
-    assert layers.cast(w, torch.bfloat16).data_ptr() != held.data_ptr()
-    assert torch.equal(layers.cast(w, torch.bfloat16),
-                       w.to(torch.bfloat16))
-    layers.cast_weights_([w], torch.bfloat16)     # refreshed in place
-    assert layers.cast(w, torch.bfloat16).data_ptr() == held.data_ptr()
-    assert torch.equal(held, w.to(torch.bfloat16))
+    with torch.no_grad():                        # as the serving path reads
+        held = layers.cast(w, torch.bfloat16)
+        assert held.data_ptr() == w._casts[torch.bfloat16][1].data_ptr()
+        assert torch.equal(held, w.to(torch.bfloat16))
+        assert torch.equal(layers.cast(w.t(), torch.bfloat16).t(), held)
+        x = torch.randn((5, 33), generator=g).to(torch.bfloat16)
+        assert torch.equal(layers.dot(x, w), x @ w.to(torch.bfloat16))
+        w.mul_(0.5)                              # an in-place write
+        assert layers.cast(w, torch.bfloat16).data_ptr() != held.data_ptr()
+        assert torch.equal(layers.cast(w, torch.bfloat16),
+                           w.to(torch.bfloat16))
+        layers.cast_weights_([w], torch.bfloat16)  # refreshed in place
+        assert layers.cast(w, torch.bfloat16).data_ptr() == held.data_ptr()
+        assert torch.equal(held, w.to(torch.bfloat16))
+    # under autograd the detached copy is never read: a fresh cast that
+    # carries w's gradient, bitwise the copy
+    live = layers.cast(w, torch.bfloat16)
+    assert live.grad_fn is not None and live.data_ptr() != held.data_ptr()
+    assert torch.equal(live, held)
 
 
 def test_dit_forward_equal_with_and_without_cast_weights():
@@ -364,12 +369,14 @@ def test_weight_bridge_makes_the_copies_stale():
     z = torch.randn((2, 8, 8, 4), generator=g)
     t = torch.tensor([900, 10])
     c = torch.randn((2, cfg.cond_len, cfg.cond_dim), generator=g)
-    assert all(layers.cast(p, torch.bfloat16) is not held[id(p)]
-               for p in model._cast)
+    with torch.no_grad():                  # as the forward reads them
+        assert all(layers.cast(p, torch.bfloat16) is not held[id(p)]
+                   for p in model._cast)
     assert torch.equal(model(z, t, c), fresh(z, t, c))
     model.cast_weights_()
-    assert all(layers.cast(p, torch.bfloat16) is held[id(p)]
-               for p in model._cast)
+    with torch.no_grad():
+        assert all(layers.cast(p, torch.bfloat16) is held[id(p)]
+                   for p in model._cast)
     assert torch.equal(model(z, t, c), fresh(z, t, c))
 
 
