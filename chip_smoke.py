@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--parent DIR]
 
-Run from the root of a checkout.  Eight phases; any failure exits non-zero
+Run from the root of a checkout.  Nine phases; any failure exits non-zero
 without the result line:
 
 1. build — compile the CUDA kernels under ``src/repro_torch/csrc`` with
@@ -116,7 +116,30 @@ without the result line:
    caches bitwise the miss's), with the CRC, spill and promotion
    milliseconds of a payload.  One trunk prefill and the replayed decode
    loop are then traced, each trace held to the counts;
-5b. train — the training path (``phase_train``) at the full ``sage-dit``
+5b. dense — the dense LM (``phase_dense``) at the full ``phi3-mini-3.8b``
+   width (32 layers, d_model 3072, 32 heads of 96, d_ff 8192 SwiGLU, vocab
+   32064, bf16, flash on the kernel route: sm90 padded to width 128): the
+   launcher at the mamba2 path's shapes in both modes (prefill s beside its
+   FLOP floor, capture s, decode tokens/s, token steps, cache bytes, peak
+   memory, launches by flash route: one sm90 launch a layer a prefill,
+   none in a decode step); the example's ``serve_groups`` over 2 groups of
+   4 (1024-token prefix, 64-token tails), each group's decode graph against
+   eager ``decode_step`` over 32 steps (every step's logits bitwise),
+   shared against independent prefills (as for mamba2),
+   ``cached_prefix_prefill`` over g0, g1, g0, g1 (two misses, two host
+   hits bitwise their misses, CRC / spill / promotion ms of a ~0.4 GiB KV
+   payload beside the prefill a hit skips); the bytes a decode step's ops
+   move (``_op_bytes``, in place as the graph runs it, and functional)
+   beside its floor; prefill(S - 1) + decode(S) against ``forward_train``
+   (f32 allclose 1e-3; bf16 against the f32 ``forward_train`` within 1.5x
+   the largest and 1.25x the mean error of the bf16 one); one
+   traced prefill and one traced replayed decode step.  Then ``qwen3-32b``
+   at full width cut to 4 layers (GQA 64/8, qk_norm): the launcher in
+   shared-prefix mode and the consistency check.  Then the example's
+   ``main()`` at smoke size in a child process, without and with
+   ``--trunk-cache`` (its group lines equal to ``llm_example_lines`` on
+   the tokens its groups served);
+5c. train — the training path (``phase_train``) at the full ``sage-dit``
    width (f32 master weights, bf16 activations, remat, the plain attention
    route: the kernels have no backward): three SAGE steps (Eq. 3, K x N =
    4 x 3, 28 denoiser rows a step) full fine-tune with AdamW, three with
@@ -1476,6 +1499,15 @@ FLASH_CASES = [
     ("d100 window 2x300x300 h4/2 d100 w64", 2, 300, 300, 4, 2, 100, True,
      64, F32),
     ("d5 causal 3x33x33 h3/1 d5", 3, 33, 33, 3, 1, 5, True, 0, F32),
+    # the dense LM's prefills: phi3-mini-3.8b at the launcher's
+    # batch (d96, padded to the 128 width), qwen3-32b's GQA 64/8 and
+    # granite-20b's MQA 48/1 at one 1024-token prompt
+    ("phi3_prefill causal 4x1024x1024 h32 d96", 4, 1024, 1024, 32, 32, 96,
+     True, 0, BF16),
+    ("qwen3_prefill causal 1x1024x1024 h64/8 d128", 1, 1024, 1024, 64, 8,
+     128, True, 0, BF16),
+    ("granite_prefill causal 1x1024x1024 h48/1 d128", 1, 1024, 1024, 48, 1,
+     128, True, 0, BF16),
 ]
 
 
@@ -1691,7 +1723,9 @@ PATHS = {"ddim": dict(total_steps=30),
          "dpmpp": dict(total_steps=30, sampler="dpmpp",
                        shared_uncond_cfg=True),
          "mamba2": dict(arch="mamba2-780m", batch=4, prompt_len=1024,
-                        gen=32, groups=2, members=4, tail=64)}
+                        gen=32, groups=2, members=4, tail=64),
+         "dense": dict(arch="phi3-mini-3.8b", batch=4, prompt_len=1024,
+                       gen=32, groups=2, members=4, tail=64)}
 DIT_PATHS = ("ddim", "dpmpp")
 # kernels each path must launch; "never" must stay at 0 launches
 PATH_KERNELS = {"ddim": dict(needs=("flash_attention", "ddim_step"),
@@ -1721,7 +1755,13 @@ PATH_KERNELS = {"ddim": dict(needs=("flash_attention", "ddim_step"),
                                         "ssd_scan")),
                 "mamba2:cache": dict(needs=("ssd_scan",),
                                      never=("flash_attention", "ddim_step",
-                                            "dpmpp_step", "group_mean"))}
+                                            "dpmpp_step", "group_mean")),
+                # the dense LM: flash in each prefill (bf16: sm90), no kernel
+                # in a decode step (gqa_decode is plain torch, as in JAX)
+                **{p: dict(needs=("flash_attention/sm90",),
+                           never=("flash_attention/tf32x3", "ddim_step",
+                                  "dpmpp_step", "group_mean", "ssd_scan"))
+                   for p in ("dense", "dense:cache", "dense:qwen3")}}
 KERNELS = ("flash_attention", "ddim_step", "dpmpp_step", "group_mean",
            "ssd_scan")
 # the sampler-step kernels, whose bytes bound lies under a launch's cost
@@ -3357,7 +3397,8 @@ def phase_mamba2(failures):
                             f"{err32:.3e} ({1e-3 * top:.3e})")
         del ind, ind32, sh32
 
-    cached = _mamba2_cached_prefix(failures, model, groups, max_len)
+    cached = _cached_prefix(failures, model, groups, max_len, "mamba2",
+                            "ssd_scan")
 
     prompt = groups[0][:1, :prefix]
     _reset_counts(counters)
@@ -3394,13 +3435,14 @@ def _host_ms(fn, reps=3):
     return best * 1e3
 
 
-def _mamba2_cached_prefix(failures, model, groups, max_len):
+def _cached_prefix(failures, model, groups, max_len, path, kernel):
     """``cached_prefix_prefill`` over the shared-prefix groups in the order
     g0, g1, g0, g1 through one ``TrunkCache`` whose budgets are one payload
     on the device and two on the host (a payload: the trunk prefill's
-    logits and state cache, by ``cache_bytes``): miss, miss with a spill,
-    then a host hit with its promotion (and a spill) twice.  A hit must
-    launch no ``ssd_scan``, count only the tails' token steps, and give
+    logits and state or KV cache, by ``cache_bytes``): miss, miss with a
+    spill, then a host hit with its promotion (and a spill) twice.  A miss
+    must launch ``kernel`` (a ``runners.launch_counts`` key) once a layer,
+    a hit none of it; a hit counts only the tails' token steps and gives
     logits and caches bitwise those of the group's miss.  Printed: each
     call's wall with its prefill, lookup and insert milliseconds (each
     between device syncs), and the CRC, spill and promotion milliseconds
@@ -3414,9 +3456,10 @@ def _mamba2_cached_prefix(failures, model, groups, max_len):
     from repro_torch.serving.shared_prefill import cached_prefix_prefill
     from repro_torch.serving.trunk_cache import (TrunkCache, _to_device,
                                                  _to_host)
+    from repro_torch.serving.runners import launch_counts
 
     dev = model.device
-    prefix = PATHS["mamba2"]["prompt_len"]
+    prefix = PATHS[path]["prompt_len"]
     payload = tfm.prefill(model, groups[0][:1, :prefix], max_len=max_len)
     one = cache_bytes(payload)
     cache = TrunkCache(tau_trunk=0.9, max_bytes=one, host_bytes=2 * one)
@@ -3436,11 +3479,10 @@ def _mamba2_cached_prefix(failures, model, groups, max_len):
     cache.insert = timed("insert", cache.insert)
     prefill = timed("prefill", lambda t, m: tfm.prefill(model, t, max_len=m))
     counters = _counters()
-    ssd = counters["ssd_scan"]
     first, calls = {}, []
     _reset_counts(counters)
     for g in (0, 1, 0, 1):
-        before, stats0 = ssd.launches, dict(cache.stats)
+        before, stats0 = launch_counts()[kernel], dict(cache.stats)
         spent0 = dict(spent)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -3449,7 +3491,7 @@ def _mamba2_cached_prefix(failures, model, groups, max_len):
             groups[g], max_len, cache=cache, centroid=cents[g])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        n = ssd.launches - before
+        n = launch_counts()[kernel] - before
         moved = {k: cache.stats[k] - stats0[k] for k in cache.stats
                  if cache.stats[k] != stats0[k]}
         hit = st["trunk_cache_hit"]
@@ -3460,65 +3502,75 @@ def _mamba2_cached_prefix(failures, model, groups, max_len):
                 torch.equal(a, b) for a, b in zip(_sorted_leaves(caches),
                                                   _sorted_leaves(f_caches)))
             if not same:
-                failures.append(f"mamba2 cached prefix group {g}: the hit's "
+                failures.append(f"{path} cached prefix group {g}: the hit's "
                                 f"logits or caches differ from the miss's")
         else:
             first[g] = (logits, caches)
         want = (0 if hit else model.cfg.n_layers,
                 _expected_steps(groups[g])["token_steps"]
                 - (prefix if hit else 0))
-        calls.append((hit, wall))
         ms = {k: round((spent[k] - spent0[k]) * 1e3, 3) for k in spent}
-        log(f"[e2e:mamba2:cache] group {g}: hit={hit} wall_s={wall:.4f} "
+        calls.append((hit, wall, ms["prefill"]))
+        log(f"[e2e:{path}:cache] group {g}: hit={hit} wall_s={wall:.4f} "
             f"(of which ms {ms}; the rest the fork and the eager catch-up) "
-            f"ssd_launches={n} token_steps={st['token_steps']} (expected "
+            f"{kernel} launches={n} token_steps={st['token_steps']} (expected "
             f"{want[1]}) cache {moved}"
             + (f"; logits and caches {'bitwise equal' if same else 'DIFFER'}"
                f" to the miss's" if hit else ""))
         if (n, st["token_steps"]) != want:
-            failures.append(f"mamba2 cached prefix group {g}: {n} ssd_scan "
+            failures.append(f"{path} cached prefix group {g}: {n} {kernel} "
                             f"launches, {st['token_steps']} token steps; "
                             f"want {want}")
     wrappers, replayed = _ran()
     got = (cache.stats["misses"], cache.stats["hits_host"],
            cache.stats["spills"], cache.stats["promotions"])
-    if got != (2, 2, 3, 2) or [h for h, _ in calls] != [False, False, True,
-                                                        True]:
-        failures.append(f"mamba2 cached prefix: misses / host hits / spills "
+    if got != (2, 2, 3, 2) or [c[0] for c in calls] != [False, False, True,
+                                                         True]:
+        failures.append(f"{path} cached prefix: misses / host hits / spills "
                         f"/ promotions {got}, want (2, 2, 3, 2)")
-    _check_path_kernels("mamba2:cache", _summed(wrappers, replayed),
+    _check_path_kernels(f"{path}:cache", _summed(wrappers, replayed),
                         failures)
     crc_ms = _host_ms(lambda: array_crc(payload))
     host = _to_host(payload)
     spill_ms = _host_ms(lambda: _to_host(payload))
     promote_ms = _host_ms(lambda: _to_device(host, dev))
-    miss = np.mean([w for h, w in calls if not h])
-    hit = np.mean([w for h, w in calls if h])
-    log(f"[e2e:mamba2:cache] payload {one / 2 ** 20:.2f} MiB ("
+    miss = np.mean([w for h, w, _ in calls if not h])
+    hit = np.mean([w for h, w, _ in calls if h])
+    skipped = np.mean([p for h, _, p in calls if not h])
+    log(f"[e2e:{path}:cache] payload {one / 2 ** 20:.2f} MiB ("
         f"{len(list(_sorted_leaves(payload)))} tensors); crc_ms="
         f"{crc_ms:.3f} spill_ms={spill_ms:.3f} promote_ms={promote_ms:.3f} "
         f"(host clock, least of 3); a call's wall: miss {miss:.4f} s, hit "
         f"{hit:.4f} s (hit/miss {hit / miss:.3f}: a hit skips the 1 x "
-        f"{prefix} prefill and pays a CRC, a promotion and a spill)")
+        f"{prefix} prefill, {skipped:.3f} ms a miss, and pays a CRC, a "
+        f"promotion and a spill); {_SMI}")
     del payload, host, cache, first
     return wrappers, replayed
 
 
 def _decode_loop(step, cache, tok, pos, n):
     """``n`` greedy steps of ``step(cache, token, pos) -> (logits,
-    cache)``: ((tokens (B, n), last logits), host seconds after a sync).
-    Each step's token is a new tensor (argmax of the logits the step
-    returned), so no entry aliases another."""
+    cache)``: ((tokens (B, n), last logits), host seconds after a sync)."""
+    steps, toks, seconds = _decode_steps(step, cache, tok, pos, n)
+    return (toks, steps[-1]), seconds
+
+
+def _decode_steps(step, cache, tok, pos, n):
+    """``n`` greedy steps of ``step(cache, token, pos) -> (logits,
+    cache)``: (every step's logits, tokens (B, n), host seconds after a
+    sync).  Each step's token is a new tensor (argmax of the logits the
+    step returned), so no entry aliases another."""
     import torch
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    out = []
+    steps, toks = [], []
     for i in range(n):
         logits, cache = step(cache, tok, pos + i)
         tok = logits.argmax(dim=-1)
-        out.append(tok)
+        steps.append(logits)
+        toks.append(tok)
     torch.cuda.synchronize()
-    return (torch.cat(out, 1), logits), time.perf_counter() - t0
+    return steps, torch.cat(toks, 1), time.perf_counter() - t0
 
 
 def _decode_check(label, got, want, failures):
@@ -3541,6 +3593,532 @@ def _decode_check(label, got, want, failures):
     if not ok:
         failures.append(f"mamba2 decode graphs {label}: tokens equal "
                         f"{same_toks}, logits worst {worst:.3f}")
+
+
+# the dense LM path: phi3-mini-3.8b at full width, flash on the
+# kernel route (bf16: sm90), the launcher and the example's groups at the
+# mamba2 path's shapes (PATHS["dense"]); qwen3-32b at full width with its
+# depth cut to DENSE_QWEN_LAYERS layers (GQA 64/8 in the kernel and the
+# cache); the example's main() at smoke size in a child process, without and
+# with the trunk cache
+DENSE_QWEN, DENSE_QWEN_LAYERS = "qwen3-32b", 4
+# prefill(S - 1) then decode(S) against forward_train at S.  In f32 the two
+# agree to allclose at DENSE_TOL32, far above their 4.2e-5 (phi3, 32
+# layers).  In bf16 both sides carry ~0.1 of rounding against f32 at full
+# width, more than the JAX arch test's 3e-2 (tests/test_arch_smoke.py, 2
+# layers at smoke size), which is printed and not held: the bf16 pair is
+# held against the f32 forward_train, within DENSE_BF16 times the bf16
+# forward_train's own distance from it (largest and mean), a bar taken from
+# the reference side alone
+DENSE_TOL32, DENSE_TOL = 1e-3, 3e-2
+DENSE_BF16 = {"max": 1.5, "mean": 1.25}
+LLM_EXAMPLE_RUNS = ((), ("--trunk-cache",))
+
+
+def _dense_model(arch, dev, seed, **over):
+    """``arch``'s full config on the kernel route (``over`` may cut its
+    depth), random weights from ``seed``, cast once to bf16."""
+    import torch
+    from repro_torch.config import get_config, replace
+    from repro_torch.models import transformer as tfm
+    cfg = replace(get_config(arch), attn_impl="kernel", **over)
+    t0 = time.perf_counter()
+    model = tfm.LM(cfg, device=dev,
+                   generator=torch.Generator(device=dev).manual_seed(seed))
+    cast = model.cast_weights_()
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in model.parameters())
+    log(f"[e2e:dense] {cfg.name}: {cfg.n_layers} attn layers d_model "
+        f"{cfg.d_model} heads {cfg.n_heads}/{cfg.n_kv_heads} x {cfg.hd} "
+        f"d_ff {cfg.d_ff} {cfg.mlp_kind} qk_norm={cfg.qk_norm} "
+        f"qkv_bias={cfg.qkv_bias} vocab {cfg.vocab} dtype {cfg.dtype} "
+        f"attn_impl {cfg.attn_impl}; {n:,} params ({n * 4 / 2 ** 30:.2f} GiB "
+        f"f32); set-up {time.perf_counter() - t0:.2f} s; weights cast once "
+        f"to {cfg.dtype}: {cast / 2 ** 30:.2f} GiB")
+    return model
+
+
+def _prefill_flops(model, batch, seq):
+    """A prefill's operations: 2 a weight of every layer matrix a token,
+    the head on the last token of each row, and causal attention (4 a
+    visible pair a head a head dim, both products)."""
+    cfg = model.cfg
+    layer = sum(p.numel() for n, p in model.named_parameters()
+                if p.ndim == 2 and n.split(".")[0] in ("prefix", "blocks",
+                                                      "suffix"))
+    pairs = seq * (seq + 1) // 2
+    return (2.0 * layer * batch * seq + 2.0 * cfg.d_model * cfg.vocab * batch
+            + 4.0 * batch * cfg.n_heads * pairs * cfg.hd * cfg.n_layers)
+
+
+def _decode_floor_bytes(model, batch, pos):
+    """The bytes one decode step at ``pos`` must move: each weight it reads
+    once, in the dtype it is read in (the cast-once copies; the norms in
+    f32; ``batch`` rows of the embedding), the K and V rows 0..pos of every
+    layer once, the new rows and the logits written once."""
+    import torch
+    cfg = model.cfg
+    bf = torch.tensor([], dtype=getattr(torch, cfg.dtype)).element_size()
+    cast = {id(p) for p in model._cast}
+    total = 0
+    for name, p in model.named_parameters():
+        if name == "embed":
+            total += batch * p.shape[1] * p.element_size()
+            if cfg.tie_embeddings:
+                total += p.numel() * bf
+        else:
+            total += p.numel() * (bf if id(p) in cast else p.element_size())
+    row = 2 * batch * cfg.n_kv_heads * cfg.hd * bf * cfg.n_layers
+    return total + row * (pos + 1) + row + batch * cfg.vocab * bf
+
+
+def _op_bytes(fn):
+    """``fn()`` under a dispatch mode that counts the bytes its aten ops
+    read and write: each tensor input once and each output once.  A view
+    or an allocation (``empty``, ``_unsafe_view``) moves none; an ``out=`` tensor is only
+    written; ``copy_`` reads its
+    source and writes its destination; a gather (``index``,
+    ``index_select``) reads the rows it returns; ``index_copy_`` and
+    ``index_put_`` write the rows they are given.  Returns (bytes, bytes
+    by op)."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+    aten = torch.ops.aten
+    allocations = (aten.empty, aten.empty_like, aten.empty_strided,
+                   aten._unsafe_view)
+    gathers = (aten.index.Tensor, aten.index_select.default)
+    scatters = {aten.index_copy_.default: 3, aten.index_copy.default: 3,
+                aten.index_put_.default: 2, aten.index_put.default: 2}
+    by_op = {}
+
+    def nb(xs):
+        return sum(x.numel() * x.element_size() for x in tree_leaves(xs)
+                   if isinstance(x, torch.Tensor))
+
+    class Count(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            out = func(*args, **kwargs)
+            if any(r.alias_info is not None and not r.alias_info.is_write
+                   for r in func._schema.returns) or (
+                       func.overloadpacket in allocations):
+                return out                        # a view or an allocation
+            if func in gathers:
+                moved = 2 * nb(out) + nb(args[1:])
+            elif func in scatters:
+                i = scatters[func]
+                moved = 2 * nb(args[i]) + nb(args[i - 1])
+            elif func is aten.copy_.default:
+                moved = nb(args[0]) + nb(args[1])
+            else:
+                written = {id(x) for x in tree_leaves(kwargs.get("out"))}
+                read = [x for x in tree_leaves((args, kwargs))
+                        if isinstance(x, torch.Tensor)
+                        and id(x) not in written]
+                moved = nb(read) + nb(out)
+            key = func.overloadpacket.__name__
+            by_op[key] = by_op.get(key, 0) + moved
+            return out
+
+    with torch.no_grad(), Count():
+        fn()
+    return sum(by_op.values()), by_op
+
+
+def _replay_vs_eager(label, model, decode, caches, tok, pos, n, failures):
+    """The decode graph against eager ``decode_step`` from the same cache:
+    every step's logits bitwise, greedy tokens equal.  Returns (replayed
+    seconds, eager seconds)."""
+    import torch
+    from repro_torch.models import transformer as tfm
+    eager, etoks, eager_s = _decode_steps(
+        lambda c, t, p: tfm.decode_step(model, c, t, p), caches, tok, pos, n)
+    decode.capture(caches, tok)
+    got, toks, replay_s = _decode_steps(decode, caches, tok, pos, n)
+    same = [torch.equal(a, b) for a, b in zip(got, eager)]
+    err = max((a.float() - b.float()).abs().max().item()
+              for a, b in zip(got, eager))
+    ok = all(same) and torch.equal(toks, etoks)
+    log(f"[check] {label} decode graph vs eager decode_step, {n} steps at "
+        f"positions {pos}..{pos + n - 1}: logits bitwise at "
+        f"{sum(same)}/{n} steps (max_abs_err {err:.3e}), tokens "
+        f"{'equal' if torch.equal(toks, etoks) else 'DIFFER'} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"{label}: the decode graph's logits differ from "
+                        f"eager decode_step's at {n - sum(same)} of {n} "
+                        f"steps (max {err:.3e})")
+    return replay_s, eager_s
+
+
+def _prefill_decode_consistency(label, model, seq, failures):
+    """prefill(S - 1) then decode_step at S - 1 against ``forward_train``
+    over the S tokens at positions S - 2 and S - 1.  In f32: allclose at
+    ``DENSE_TOL32``.  In bf16: the pair against the f32 ``forward_train``,
+    its largest and mean error within ``DENSE_BF16`` times those of the
+    bf16 ``forward_train`` against the same f32 one; the pair against the
+    bf16 ``forward_train`` at the JAX test's ``DENSE_TOL`` is printed."""
+    import numpy as np
+    import torch
+    from repro_torch.models import transformer as tfm
+    tokens = np.random.RandomState(4).randint(0, model.cfg.vocab, (1, seq))
+    dtype0, pair, want = model.cfg.dtype, {}, {}
+    for dtype in ("float32", "bfloat16"):
+        m = _as_dtype(model, dtype)
+        with torch.no_grad():
+            full, _ = tfm.forward_train(m, tokens)
+        last, cache = tfm.prefill(m, tokens[:, :seq - 1], max_len=seq + 4)
+        dec, _ = tfm.decode_step(m, cache, tokens[:, seq - 1:], seq - 1)
+        pair[dtype] = torch.cat([last, dec], 1).float()
+        want[dtype] = full[:, seq - 2:].float()
+        del full, cache
+    _as_dtype(model, dtype0)
+
+    def worst(got, ref, tol):
+        return ((got - ref).abs() / (tol * (1 + ref.abs()))).max().item()
+
+    ref32 = want["float32"]
+    err32 = (pair["float32"] - ref32).abs().max().item()
+    worst32 = worst(pair["float32"], ref32, DENSE_TOL32)
+    got16 = (pair["bfloat16"] - ref32).abs()
+    own16 = (want["bfloat16"] - ref32).abs()
+    err16 = {"max": got16.max().item(), "mean": got16.mean().item()}
+    own = {"max": own16.max().item(), "mean": own16.mean().item()}
+    ok16 = all(err16[k] <= DENSE_BF16[k] * own[k] for k in DENSE_BF16)
+    vs16 = (pair["bfloat16"] - want["bfloat16"]).abs().max().item()
+    jax_bar = worst(pair["bfloat16"], want["bfloat16"], DENSE_TOL)
+    ok = worst32 <= 1 and ok16
+    log(f"[check] {label} prefill({seq - 1}) + decode({seq}) vs "
+        f"forward_train({seq}): f32 max_abs_err={err32:.3e} worst/tol="
+        f"{worst32:.3f} (allclose {DENSE_TOL32}); bf16 against the f32 "
+        f"forward_train max {err16['max']:.3e} mean {err16['mean']:.3e}, "
+        f"the bf16 forward_train's own max {own['max']:.3e} mean "
+        f"{own['mean']:.3e} (tol {DENSE_BF16['max']}x max, "
+        f"{DENSE_BF16['mean']}x mean) {'ok' if ok else 'FAIL'}; report: "
+        f"bf16 against the bf16 forward_train max_abs_err={vs16:.3e} "
+        f"worst/tol={jax_bar:.3f} at the JAX test's allclose {DENSE_TOL} "
+        f"({'met' if jax_bar <= 1 else 'not met'})")
+    if not ok:
+        failures.append(f"{label}: prefill/decode vs forward_train: f32 "
+                        f"{err32:.3e} (worst {worst32:.3f}), bf16 {err16} "
+                        f"against the bf16 forward_train's own {own}")
+
+
+def _dense_serve(failures, model, arch, modes):
+    """The launcher on ``model`` at ``PATHS["dense"]``'s batch, prompt and
+    generation, in each of ``modes`` (shared_prefix); each prefill must
+    launch the sm90 flash kernel once a layer.  Returns the last run."""
+    import torch
+    from repro_torch.launch.serve import serve
+    from repro_torch.serving.runners import launch_counts
+    spec, dev = PATHS["dense"], model.device
+    per_prefill = model.cfg.n_layers
+    for shared in modes:
+        before = launch_counts()
+        torch.cuda.reset_peak_memory_stats(dev)
+        r = serve(arch, batch=spec["batch"], prompt_len=spec["prompt_len"],
+                  gen=spec["gen"], shared_prefix=shared, device=dev,
+                  model=model)
+        n = {k: v - before[k] for k, v in launch_counts().items()
+             if v != before[k]}
+        rows = 1 if shared else spec["batch"]
+        floor = _prefill_flops(model, rows, spec["prompt_len"]) / (
+            PEAK_FLOPS["bfloat16"])
+        log(f"[e2e:dense] {model.cfg.name} launcher shared_prefix={shared}: "
+            f"prefill_s={r['prefill_s']:.4f} ({rows} x {spec['prompt_len']}"
+            f" tokens, FLOP floor {floor * 1e3:.3f} ms at the bf16 peak) "
+            f"capture_s={r['capture_s']:.4f} decode_s={r['decode_s']:.4f} "
+            f"({r['decode_s'] / spec['gen'] * 1e3:.3f} ms a step) "
+            f"decode_tok_s={r['decode_tok_s']:.1f} token_steps="
+            f"{r['token_steps']} cache_gib={r['cache_bytes'] / 2 ** 30:.3f} "
+            f"peak_mem_gib="
+            f"{torch.cuda.max_memory_allocated(dev) / 2 ** 30:.3f} "
+            f"launches {n}; {_SMI}")
+        want = spec["batch"] * spec["gen"] + (
+            spec["prompt_len"] if shared
+            else spec["batch"] * spec["prompt_len"])
+        if (n.get("flash_attention/sm90", 0) != per_prefill
+                or n.get("flash_attention") != per_prefill):
+            failures.append(f"e2e dense {model.cfg.name} launcher: "
+                            f"launches {n}, want {per_prefill} sm90 flash "
+                            f"launches a prefill")
+        if (r["token_steps"] != want or r["tokens"].shape
+                != (spec["batch"], spec["gen"])
+                or not torch.isfinite(r["logits"]).all()):
+            failures.append(f"e2e dense {model.cfg.name} launcher: token "
+                            f"steps {r['token_steps']} (want {want}), tokens "
+                            f"{r['tokens'].shape}, or non-finite logits")
+    return r
+
+
+def _decode_bytes(failures, model):
+    """One decode step of the launcher's shape at position prompt_len, in
+    place on a copy of a prefilled cache as the decode graph runs it: the
+    bytes its ops move (``_op_bytes``) beside the step's floor
+    (``_decode_floor_bytes``), and the same for the functional step, which
+    writes a whole new cache.  Returns the cache and the next token, for
+    the profiled decode step."""
+    import numpy as np
+    import torch
+    from repro_torch.models import transformer as tfm
+    spec, dev = PATHS["dense"], model.device
+    B, P = spec["batch"], spec["prompt_len"]
+    prompts = np.random.RandomState(0).randint(0, model.cfg.vocab, (B, P))
+    logits, cache = tfm.prefill(model, prompts, max_len=P + spec["gen"] + 8)
+    tok = logits.argmax(dim=-1)
+    pos = torch.tensor(P, device=dev)
+    in_place, by_op = _op_bytes(
+        lambda: tfm.decode_step(model, cache, tok, pos, out=cache))
+    functional, _ = _op_bytes(lambda: tfm.decode_step(model, cache, tok, P))
+    floor = _decode_floor_bytes(model, B, P)
+    top = sorted(by_op.items(), key=lambda kv: -kv[1])[:6]
+    log(f"[e2e:dense:decode-bytes] {model.cfg.name} decode step at batch "
+        f"{B}, position {P}, cache of {P + spec['gen'] + 8} rows: the "
+        f"replayed (in-place) step's ops move {in_place / 1e9:.4f} GB, "
+        f"the functional step's {functional / 1e9:.4f} GB; the step's floor "
+        f"{floor / 1e9:.4f} GB = {floor / HBM_BYTES_PER_S * 1e3:.4f} ms at "
+        f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s ({B * HBM_BYTES_PER_S / floor:.1f}"
+        f" tokens/s at most); by op (GB): "
+        + ", ".join(f"{k} {v / 1e9:.4f}" for k, v in top) + f"; {_SMI}")
+    if not floor <= in_place < functional:
+        failures.append(f"dense decode bytes: in place {in_place}, "
+                        f"functional {functional}, floor {floor}")
+    return cache, tok
+
+
+def llm_example_lines(tokens, cached):
+    """The group lines ``repro_torch.examples.shared_prefill_llm`` prints
+    for groups that served ``tokens`` (one (members, S) array a group, in
+    order), found here with numpy alone: ``_expected_steps``'s counts and,
+    with ``cached``, a hit for each group whose shared prefix an earlier
+    group served (the trunk cache's key holds the prefix's tokens), which
+    skips the prefix's token steps."""
+    import numpy as np
+    seen, lines = [], []
+    for g, t in enumerate(tokens):
+        st = _expected_steps(t)
+        prefix = t[0, :st["prefix_len"]]
+        hit = cached and any(np.array_equal(prefix, p) for p in seen)
+        seen.append(prefix)
+        steps = st["token_steps"] - (st["prefix_len"] if hit else 0)
+        saving = 1.0 - steps / st["token_steps_naive"]
+        lines.append(f"group {g}: prefix={st['prefix_len']} steps={steps} "
+                     f"vs naive {st['token_steps_naive']} -> saving "
+                     f"{saving:.1%}" + (" [cache hit]" if hit else ""))
+    return lines
+
+
+# the example's main() in a child process, with the tokens its groups
+# served on a last line of their own
+LLM_EXAMPLE_CHILD = (
+    "import json, sys\n"
+    "from repro_torch.examples.shared_prefill_llm import main\n"
+    "records = main(sys.argv[1:])\n"
+    "print('tokens ' + json.dumps([r['tokens'].tolist() for r in records]))\n")
+
+
+def llm_example_check(stdout, cached):
+    """The example's printed lines and its group lines, and the group lines
+    ``llm_example_lines`` finds for the tokens the child served (empty
+    without its ``tokens`` line)."""
+    import numpy as np
+    printed = [ln for ln in stdout.splitlines()
+               if not ln.startswith("tokens ")]
+    served = [json.loads(ln[len("tokens "):]) for ln in stdout.splitlines()
+              if ln.startswith("tokens ")]
+    got = [ln for ln in printed if ln.startswith("group ")]
+    want = (llm_example_lines([np.array(t) for t in served[-1]], cached)
+            if served else [])
+    return printed, got, want
+
+
+def _dense_example(failures):
+    """The example's ``main()`` (phi3 at smoke size) in a child process on
+    the card, without and with ``--trunk-cache``: exit 0, and each group's
+    line equal to ``llm_example_lines`` on the tokens it served (the JAX
+    example's lines are held on the CPU by
+    tests/test_torch_lm_serving_dense.py)."""
+    for extra in LLM_EXAMPLE_RUNS:
+        cached = "--trunk-cache" in extra
+        tag = f"[example:llm{'+cache' if cached else ''}]"
+        cmd = [sys.executable, "-c", LLM_EXAMPLE_CHILD, *extra]
+        t0 = time.perf_counter()
+        try:
+            run = subprocess.run(cmd, cwd=ROOT, capture_output=True,
+                                 text=True, timeout=300, env=dict(
+                                     os.environ,
+                                     PYTHONPATH=str(ROOT / "src")))
+        except subprocess.TimeoutExpired:
+            failures.append(f"llm example {extra}: no exit within 300 s")
+            continue
+        wall = time.perf_counter() - t0
+        printed, got, want = llm_example_check(run.stdout, cached)
+        for line in printed:
+            log(f"{tag} {line}")
+        ok = run.returncode == 0 and bool(want) and got == want
+        log(f"{tag} exit {run.returncode} in {wall:.1f} s (a child process);"
+            f" group lines {'equal to' if got == want else 'DIFFER from'} "
+            f"the counts found here for its {len(want)} groups' tokens "
+            f"{'ok' if ok else 'FAIL'}; {_SMI}")
+        if not ok:
+            failures.append(f"llm example {extra}: exit {run.returncode}, "
+                            f"lines {got} != {want}; stderr "
+                            f"{run.stderr[-2000:]}")
+
+
+def phase_dense(failures):
+    """The dense LM path at full ``phi3-mini-3.8b`` width (32 layers,
+    d_model 3072, 32 heads of 96, d_ff 8192 SwiGLU, vocab 32064; random
+    weights from seed 0, bf16 activations, flash on the kernel route): the
+    launcher in both modes, the example's ``serve_groups`` (2 groups of 4,
+    a 1024-token shared prefix, 64-token tails), each group's decode graph
+    against eager ``decode_step`` (32 steps, bitwise), ``cached_prefix_prefill``
+    over g0, g1, g0, g1; launch counts set to 0 just before these runs and
+    read just after.  Then the lossless check (shared against independent
+    prefills), the decode step's bytes, prefill/decode against
+    ``forward_train``, one traced prefill and one traced replayed decode
+    step; ``qwen3-32b`` at full width cut to 4 layers (the launcher in
+    shared-prefix mode, the consistency check); the example's ``main()``
+    in child processes.  Returns the paths' launch counts."""
+    import numpy as np
+    import torch
+    from repro_torch.examples.shared_prefill_llm import serve_groups
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serving.runners import DecodeRunner, launch_counts
+
+    dev = torch.device("cuda:0")
+    spec = PATHS["dense"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated(dev)
+    model = _dense_model(spec["arch"], dev, seed=0)
+    cfg = model.cfg
+    _cast_check("phi3-mini-3.8b prefill 1 x 256", model._cast,
+                lambda: tfm.prefill(model, np.arange(256)[None])[0],
+                failures)
+    counters = _counters()
+    _reset_counts(counters)
+    torch.cuda.synchronize()
+    _dense_serve(failures, model, spec["arch"], (False, True))
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = launch_counts()["flash_attention/sm90"]
+    t0 = time.perf_counter()
+    records = serve_groups(model, groups=spec["groups"],
+                           members=spec["members"],
+                           prefix=spec["prompt_len"], tail=spec["tail"],
+                           log=lambda line: log(f"[e2e:dense] {line}"))
+    wall = time.perf_counter() - t0
+    n = launch_counts()["flash_attention/sm90"] - before
+    decode = DecodeRunner(model)
+    replay_s = eager_s = 0.0
+    for g, rec in enumerate(records):
+        want = _expected_steps(rec["tokens"])
+        log(f"[e2e:dense] group {g}: {rec['tokens'].shape[0]} x "
+            f"{rec['tokens'].shape[1]} tokens, wall_s={rec['wall_s']:.4f} "
+            f"(trunk prefill_s={rec['prefill_s']:.4f}, then the fork and "
+            f"{spec['tail']} eager catch-up steps) counts {rec['stats']} "
+            f"(expected {want}) logits_finite="
+            f"{bool(torch.isfinite(rec['logits']).all())}")
+        if rec["stats"] != want or not torch.isfinite(rec["logits"]).all():
+            failures.append(f"e2e dense group {g}: counts {rec['stats']} != "
+                            f"{want}, or non-finite logits")
+        tok = rec["logits"].argmax(dim=-1)
+        r, e = _replay_vs_eager(f"dense group {g}", model, decode,
+                                rec["caches"], tok,
+                                rec["tokens"].shape[1], spec["gen"],
+                                failures)
+        replay_s, eager_s = replay_s + r, eager_s + e
+    if n != cfg.n_layers * spec["groups"]:
+        failures.append(f"e2e dense serve_groups: {n} sm90 flash launches, "
+                        f"not {cfg.n_layers} x {spec['groups']} trunk "
+                        f"prefills")
+    dec_tok = spec["groups"] * spec["members"] * spec["gen"]
+    log(f"[e2e:dense] serve_groups over {spec['groups']} groups: wall_s="
+        f"{wall:.4f}; decode {dec_tok} tokens replayed in {replay_s:.4f} s"
+        f" = {dec_tok / replay_s:.1f} tok/s (capture_s="
+        f"{decode.capture_s:.4f}), eager {eager_s:.4f} s = "
+        f"{dec_tok / eager_s:.1f} tok/s; peak_mem_gib="
+        f"{torch.cuda.max_memory_allocated(dev) / 2 ** 30:.3f} (held before "
+        f"the phase {held / 2 ** 30:.3f}); {_SMI}")
+    wrappers, replayed = _ran()
+    _check_path_kernels("dense", _summed(wrappers, replayed), failures)
+    if any(replayed.values()):
+        failures.append(f"e2e dense: the decode graphs hold kernels of the "
+                        f"port's: {replayed}")
+    groups = [rec["tokens"] for rec in records]
+    max_len = spec["prompt_len"] + spec["tail"] + spec["gen"] + 8
+    for rec in records:
+        rec["caches"] = None              # 1.6 GiB a group
+
+    # lossless sharing, as the mamba2 path holds it: bf16 within twice
+    # bf16's own error there, f32 within 1e-3 of the logits' magnitude
+    from repro_torch.serving.shared_prefill import shared_prefix_prefill
+    for g, tokens in enumerate(groups):
+        ind, _ = tfm.prefill(model, tokens)
+        m32 = _as_dtype(model, "float32")
+        ind32, _ = tfm.prefill(m32, tokens)
+        sh32 = shared_prefix_prefill(
+            lambda t, m: tfm.prefill(m32, t, max_len=m),
+            lambda c, t, p: tfm.decode_step(m32, c, t, p), tokens,
+            max_len)[0].float()
+        _as_dtype(model, cfg.dtype)
+        ind, ind32 = ind.float(), ind32.float()
+        err = (records[g]["logits"].float() - ind).abs().max().item()
+        noise = (ind - ind32).abs().max().item()
+        err32 = (sh32 - ind32).abs().max().item()
+        top = ind32.abs().max().item()
+        ok = err <= 2 * noise and err32 <= 1e-3 * top
+        log(f"[check] dense shared vs independent logits, group {g}: bf16 "
+            f"max_abs_err={err:.4e} (bf16 vs f32 {noise:.4e}, tol 2x); f32 "
+            f"max_abs_err={err32:.4e} (tol 1e-3 x |logits| max {top:.3f}) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"dense group {g}: shared vs independent logits "
+                            f"differ: bf16 {err:.3e} (2 x {noise:.3e}), f32 "
+                            f"{err32:.3e} ({1e-3 * top:.3e})")
+        del ind, ind32, sh32
+    del records
+
+    cached = _cached_prefix(failures, model, groups, max_len, "dense",
+                            "flash_attention/sm90")
+    cache, tok = _decode_bytes(failures, model)
+    _prefill_decode_consistency(f"{cfg.name}", model, spec["prompt_len"],
+                                failures)
+
+    prompts = np.random.RandomState(0).randint(
+        0, cfg.vocab, (spec["batch"], spec["prompt_len"]))
+    _reset_counts(counters)
+    rows = _profile(f"dense prefill {spec['batch']}x{spec['prompt_len']}",
+                    lambda: tfm.prefill(model, prompts, max_len=max_len),
+                    ("flash_sm90_kernel",))
+    _trace_check("dense prefill", rows, _summed(*_ran()), failures)
+    decode = DecodeRunner(model)
+    decode.capture(cache, tok)
+    pos = spec["prompt_len"]
+    _, cset = decode(cache, tok, pos)
+    _reset_counts(counters)
+    label = f"dense decode step x{spec['batch']}, replayed"
+    rows = _profile(label, lambda: decode(cset, tok, pos + 1))
+    _trace_check(label, rows, _summed(*_ran()), failures)
+    del model, cache, cset, decode
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    qwen = _dense_model(DENSE_QWEN, dev, seed=1, n_layers=DENSE_QWEN_LAYERS)
+    _reset_counts(counters)
+    _dense_serve(failures, qwen, DENSE_QWEN, (True,))
+    q_launches = _ran()
+    _check_path_kernels("dense:qwen3", _summed(*q_launches), failures)
+    _prefill_decode_consistency(f"{qwen.cfg.name} (depth {qwen.cfg.n_layers})",
+                                qwen, spec["prompt_len"], failures)
+    del qwen
+    gc.collect()
+    torch.cuda.empty_cache()
+    _dense_example(failures)
+    return {"dense": (wrappers, replayed), "dense:cache": cached,
+            "dense:qwen3": q_launches}
 
 
 def phase_reference(failures):
@@ -3625,6 +4203,7 @@ def phase_reference(failures):
                 failures.append(f"reference stream {trace}: a group's image "
                                 f"moved with the cache elsewhere: {errs}")
     _reference_mamba2(failures)
+    _reference_dense(failures)
 
 
 def _reference_mamba2(failures):
@@ -3667,6 +4246,56 @@ def _reference_mamba2(failures):
         f"{err:.3e} tol=1e-4 {'ok' if ok else 'FAIL'}")
     if not ok:
         failures.append(f"reference mamba2: card vs cpu differ (same={same},"
+                        f" err={err:.3e})")
+
+
+def _reference_dense(failures):
+    """The dense LM at phi3-mini-smoke in f32 on the card (flash on the
+    kernel route: the 3xTF32 kernel) and on the CPU (its plain version),
+    same weights: ``shared_prefix_prefill`` over one group (a 40-token
+    prefix, 9-token tails) and the launcher in both modes.  Counts and
+    greedy tokens equal, logits within 1e-4 (the f32 kernel sweep's
+    bar)."""
+    import numpy as np
+    import torch
+    from repro_torch.config import get_config, replace
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serving.shared_prefill import shared_prefix_prefill
+
+    cfg = replace(get_config("phi3-mini-3.8b", smoke=True), dtype="float32",
+                  attn_impl="kernel")
+    gpu = tfm.LM(cfg, device="cuda:0",
+                 generator=torch.Generator(device="cuda:0").manual_seed(2))
+    _randomize_zero_init(gpu, torch.Generator(device="cuda:0").manual_seed(3))
+    cpu = tfm.LM(cfg, device="cpu")
+    cpu.load_state_dict(gpu.state_dict())
+    tokens = next(_group_tokens(np.random.RandomState(1), cfg.vocab, 1, 3,
+                                40, 9))
+    out = []
+    for model in (gpu, cpu):
+        logits, _, _, stats = shared_prefix_prefill(
+            lambda t, m: tfm.prefill(model, t, max_len=m),
+            lambda c, t, p: tfm.decode_step(model, c, t, p), tokens, 64)
+        runs = [serve("phi3-mini-3.8b", smoke=True, batch=3, prompt_len=40,
+                      gen=8, shared_prefix=shared, device=model.device,
+                      model=model) for shared in (False, True)]
+        out.append((logits.cpu(), stats,
+                    [r["logits"].cpu() for r in runs],
+                    [r["tokens"] for r in runs],
+                    [r["token_steps"] for r in runs]))
+    (lg, st, rl, rt, rs), (lc, sc, rlc, rtc, rsc) = out
+    same = (st == sc and rs == rsc
+            and all(np.array_equal(a, b) for a, b in zip(rt, rtc)))
+    err = max([(lg - lc).abs().max().item()]
+              + [(a - b).abs().max().item() for a, b in zip(rl, rlc)])
+    top = max([lc.abs().max().item()] + [b.abs().max().item() for b in rlc])
+    ok = same and err <= 1e-4 * (1 + top)
+    log(f"[reference:dense] smoke phi3 card vs cpu: counts/tokens "
+        f"{'equal' if same else 'DIFFER'} ({st}, launcher token steps {rs})"
+        f", logits max_abs_err={err:.3e} tol=1e-4 {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"reference dense: card vs cpu differ (same={same},"
                         f" err={err:.3e})")
 
 
@@ -4133,6 +4762,10 @@ def main(argv) -> int:
     launches.update(phase_mamba2(failures))
     gc.collect()
     torch.cuda.empty_cache()
+    t5d = time.perf_counter()
+    launches.update(phase_dense(failures))
+    gc.collect()
+    torch.cuda.empty_cache()
     t5t = time.perf_counter()
     phase_train(failures)
     gc.collect()
@@ -4146,7 +4779,8 @@ def main(argv) -> int:
     t7 = time.perf_counter()
     log(f"[time] build {t1 - t0:.1f} s, kernels {t2 - t1:.1f} s, "
         f"e2e DiT {t3 - t2:.1f} s, stream {t4 - t3:.1f} s, example "
-        f"{t4e - t4:.1f} s, e2e mamba2 {t5t - t4e:.1f} s, train "
+        f"{t4e - t4:.1f} s, e2e mamba2 {t5d - t4e:.1f} s, e2e dense "
+        f"{t5t - t5d:.1f} s, train "
         f"{t5 - t5t:.1f} s, reference "
         f"{t6 - t5:.1f} s, graph nodes {t7 - t6:.1f} s")
     if failures:

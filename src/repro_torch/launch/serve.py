@@ -5,14 +5,21 @@ shared-prefix mode (one trunk prefill, forked to the batch).
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-780m \\
         [--smoke] [--batch 4 --prompt-len 64 --gen 32] [--shared-prefix] \\
         [--device cpu]
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch phi3-mini-3.8b --smoke --device cpu
+
+Any ported family serves: ``mamba2-780m`` (SSM states) and the dense
+configs (``phi3-mini-3.8b``, ``qwen3-32b``, ``qwen1.5-32b``,
+``granite-20b``: KV caches of ``prompt_len + gen + 8`` rows).
 
 The device defaults to CUDA and raises without a GPU.  The weights are
 random, drawn from seed 0, and cast to the activation dtype once; the
 prompts come from numpy's ``RandomState(0)``, as in the JAX launcher, so
 both see the same tokens.  On a CUDA device every decode step replays a
 CUDA graph (``serving.runners.DecodeRunner``, the counterpart of the JAX
-launcher's ``jax.jit(decode_step)``), captured before the decode clock
-starts; the prefill stays eager.  On the CPU the decode steps run eagerly.
+launcher's ``jax.jit(decode_step)``: one graph for every position, which
+it reads from the device), captured before the decode clock starts; the
+prefill stays eager.  On the CPU the decode steps run eagerly.
 """
 from __future__ import annotations
 

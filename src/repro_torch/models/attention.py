@@ -1,21 +1,31 @@
-"""GQA attention (covers MHA/MQA, bias, qk_norm, cross-attention) for the
-full-sequence paths.  Parameters live in an ``nn.ParameterDict`` named as
-in the JAX package (``wq``, ``wk``, ``wv``, ``wo``, optional ``bq``/``bk``/
-``bv`` and ``q_norm``/``k_norm``), so the weight bridge maps them by name.
-The decode, prefill and MLA paths come with the LLM substrate.
+"""GQA attention (covers MHA/MQA, bias, qk_norm, sliding window,
+cross-attention): the full-sequence paths and the KV-cache serving path.
+Parameters live in an ``nn.ParameterDict`` named as in the JAX package
+(``wq``, ``wk``, ``wv``, ``wo``, optional ``bq``/``bk``/``bv`` and
+``q_norm``/``k_norm``), so the weight bridge maps them by name.  MLA comes
+with the MoE family.
+
+Cache layout (the JAX package's): ``{"k": (B, L, Hkv, hd), "v": (B, L,
+Hkv, hd)}`` with L = max_len, or L = window with ring addressing (slot =
+pos % window).  RoPE is applied before caching, so slot order does not
+enter the attention.  A decode step's ``pos`` may be a 0-dim device
+tensor: the row it writes and the keys it attends to are computed from it
+on the device, so one captured graph serves every position.
 """
 from __future__ import annotations
 
 import math
-from typing import Mapping, Optional, Tuple
+from typing import Dict, Mapping, Optional, Tuple
 
 import torch
 from torch import nn
 
 from repro_torch.config import ModelConfig
 from repro_torch.kernels import dispatch
-from repro_torch.models.layers import (apply_rope, cast, dense_init, dot,
-                                      rms_norm)
+from repro_torch.models.layers import (apply_rope, attend, cast,
+                                      dense_init, dot, rms_norm)
+
+Cache = Dict[str, torch.Tensor]
 
 
 def init_gqa(cfg: ModelConfig, *, device, generator) -> nn.ParameterDict:
@@ -79,3 +89,106 @@ def gqa_full(p: Mapping[str, torch.Tensor], cfg: ModelConfig,
                              window=window, block=cfg.attn_block,
                              scale=1.0 / math.sqrt(cfg.hd))
     return dot(out.reshape(*x.shape[:2], -1), p["wo"])
+
+
+def gqa_cache_init(cfg: ModelConfig, batch: int, max_len: int, dtype,
+                   device) -> Cache:
+    shp = (batch, max_len, cfg.n_kv_heads, cfg.hd)
+    return {"k": torch.zeros(shp, dtype=dtype, device=device),
+            "v": torch.zeros(shp, dtype=dtype, device=device)}
+
+
+def gqa_prefill(p: Mapping[str, torch.Tensor], cfg: ModelConfig,
+                x: torch.Tensor, *, max_len: int, window: int = 0
+                ) -> Tuple[torch.Tensor, Cache]:
+    """Causal self-attention over the prompt; returns output + filled
+    cache.  With ``window == max_len <= S`` the cache holds the last
+    ``window`` rows at slot = position % window (the ring layout
+    :func:`gqa_decode` continues); else the rows go to slots 0..S-1."""
+    B, S, _ = x.shape
+    q, k, v = _qkv(p, cfg, x, x)
+    pos = torch.arange(S, device=x.device)
+    q = apply_rope(q, pos, cfg.rope_theta)
+    k = apply_rope(k, pos, cfg.rope_theta)
+    out = dispatch.attention(q, k, v, impl=cfg.attn_impl, causal=True,
+                             window=window, block=cfg.attn_block,
+                             scale=1.0 / math.sqrt(cfg.hd))
+    cache = gqa_cache_init(cfg, B, max_len, k.dtype, x.device)
+    if window and max_len == window and S >= window:
+        slots = torch.arange(S - window, S, device=x.device) % window
+        cache["k"][:, slots] = k[:, -window:]
+        cache["v"][:, slots] = v[:, -window:]
+    else:
+        if S > max_len:
+            raise ValueError(f"a {S}-token prompt does not fit a cache of "
+                             f"{max_len} rows")
+        cache["k"][:, :S] = k
+        cache["v"][:, :S] = v
+    return dot(out.reshape(B, S, -1), p["wo"]), cache
+
+
+def _into(dst: Optional[torch.Tensor], src: torch.Tensor) -> torch.Tensor:
+    """``src``'s values in ``dst`` (a new tensor when None); nothing is
+    copied when ``dst`` already is ``src``'s memory (a cache updated in
+    place)."""
+    if dst is None:
+        return src.clone()
+    if dst.data_ptr() != src.data_ptr() or dst.stride() != src.stride():
+        dst.copy_(src)
+    return dst
+
+
+def gqa_decode(p: Mapping[str, torch.Tensor], cfg: ModelConfig,
+               x: torch.Tensor, cache: Cache, pos, *, ring: bool = False,
+               out: Optional[Cache] = None) -> Tuple[torch.Tensor, Cache]:
+    """One-token decode.  x (B,1,D); ``pos`` the token's position (an int
+    or a 0-dim integer tensor).  The new cache is ``cache`` with the row at
+    ``pos`` (``pos % L`` on a ring) replaced; the write lands at the last
+    row for a position past the cache, where JAX's
+    ``dynamic_update_slice`` clamps it.  It is written into ``out``'s
+    tensors when given (``out`` may be ``cache`` itself: then only the row
+    is written), else into new ones; ``cache`` is only read otherwise."""
+    B = x.shape[0]
+    q, k, v = _qkv(p, cfg, x, x)
+    pos = torch.as_tensor(pos, dtype=torch.long, device=x.device)
+    q = apply_rope(q, pos, cfg.rope_theta)
+    k = apply_rope(k, pos, cfg.rope_theta)
+    L = cache["k"].shape[1]
+    slot = (pos % L if ring else pos.clamp(0, L - 1)).reshape(1)
+    ck = _into(None if out is None else out["k"], cache["k"])
+    cv = _into(None if out is None else out["v"], cache["v"])
+    ck.index_copy_(1, slot, k.to(ck.dtype))
+    cv.index_copy_(1, slot, v.to(cv.dtype))
+    valid = (torch.arange(L, device=x.device) <= pos)[None, None, None,
+                                                      None, :]
+    o = attend(q, ck, cv, valid, 1.0 / math.sqrt(cfg.hd))
+    return dot(o.reshape(B, 1, -1), p["wo"]), {"k": ck, "v": cv}
+
+
+def gqa_cross_cache(p: Mapping[str, torch.Tensor], cfg: ModelConfig,
+                    memory: torch.Tensor) -> Cache:
+    """Cross-attention K/V precomputed from encoder / image memory."""
+    B, S, _ = memory.shape
+    k = dot(memory, p["wk"]).reshape(B, S, cfg.n_kv_heads, cfg.hd)
+    v = dot(memory, p["wv"]).reshape(B, S, cfg.n_kv_heads, cfg.hd)
+    if cfg.qkv_bias:
+        k = k + cast(p["bk"], k.dtype).reshape(1, 1, cfg.n_kv_heads, cfg.hd)
+        v = v + cast(p["bv"], v.dtype).reshape(1, 1, cfg.n_kv_heads, cfg.hd)
+    if cfg.qk_norm:
+        k = rms_norm(k, p["k_norm"], cfg.rms_eps)
+    return {"k": k, "v": v}
+
+
+def gqa_cross_decode(p: Mapping[str, torch.Tensor], cfg: ModelConfig,
+                     x: torch.Tensor, kv: Cache) -> torch.Tensor:
+    """Cross-attention of one (or a few) query tokens against cached
+    memory K/V."""
+    B, S, _ = x.shape
+    q = dot(x, p["wq"])
+    if cfg.qkv_bias:
+        q = q + cast(p["bq"], q.dtype)
+    q = q.reshape(B, S, cfg.n_heads, cfg.hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.rms_eps)
+    o = attend(q, kv["k"], kv["v"], None, 1.0 / math.sqrt(cfg.hd))
+    return dot(o.reshape(B, S, -1), p["wo"])

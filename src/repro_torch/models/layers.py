@@ -86,6 +86,16 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor,
     return (x * (1.0 + scale.float())).to(dt)
 
 
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-6) -> torch.Tensor:
+    dt = x.dtype
+    x = x.float()
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean((x - mu) ** 2, dim=-1, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * scale.float() + bias.float()).to(dt)
+
+
 def rope_freqs(hd: int, theta: float, device=None) -> torch.Tensor:
     return 1.0 / (theta ** (torch.arange(0, hd, 2, dtype=torch.float32,
                                          device=device) / hd))
@@ -93,9 +103,12 @@ def rope_freqs(hd: int, theta: float, device=None) -> torch.Tensor:
 
 def apply_rope(x: torch.Tensor, pos: torch.Tensor,
                theta: float) -> torch.Tensor:
-    """x: (..., S, H, hd); pos: (S,) integer positions."""
+    """x: (..., S, H, hd); pos: integer positions broadcastable to
+    (..., S); a 0-dim ``pos`` (a decode step's, on the device) is one
+    position."""
     freqs = rope_freqs(x.shape[-1], theta, x.device)          # (hd/2,)
-    ang = pos[:, None, None].float() * freqs                  # (S, 1, hd/2)
+    pos = pos.reshape(1) if pos.ndim == 0 else pos
+    ang = pos[..., :, None, None].float() * freqs             # (..,S,1,hd/2)
     cos, sin = torch.cos(ang), torch.sin(ang)
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
@@ -137,10 +150,11 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(B, Sq, H, v.shape[-1])
 
 
-def causal_mask(sq: int, sk: int, window: int = 0,
+def causal_mask(sq: int, sk: int, q_offset: int = 0, window: int = 0,
                 device=None) -> torch.Tensor:
-    """(1,1,1,sq,sk) boolean mask; window=0 means full causal."""
-    qi = torch.arange(sq, device=device)[:, None]
+    """(1,1,1,sq,sk) boolean mask, query i at position i + q_offset;
+    window=0 means full causal."""
+    qi = torch.arange(sq, device=device)[:, None] + q_offset
     ki = torch.arange(sk, device=device)[None, :]
     m = ki <= qi
     if window:

@@ -1,5 +1,5 @@
 """Model assembly: the LM runtime behind the JAX package's API, for the
-mixers ported so far.
+families ported so far.
 
 The JAX package scans stacked layer params (``lax.scan`` over ``blocks``);
 here ``blocks`` is an ``nn.ModuleList`` walked in a loop, while the cache
@@ -9,12 +9,16 @@ keeps the JAX structure ``{"prefix", "blocks", "suffix"}`` with every
 
 Public API (the model stands in for ``(params, cfg)``)
 ------------------------------------------------------
-LM(cfg, device=, generator=)                     -> model  (init_params)
-prefill(model, tokens, max_len)                  -> (last_logits, cache)
-decode_step(model, cache, token, pos, out=)      -> (logits, cache)
+LM(cfg, device=, generator=)                        -> model  (init_params)
+forward_train(model, tokens, remat=)                -> (logits (B,S,V), aux)
+lm_loss(model, batch, remat=)                       -> scalar loss
+init_cache(model, batch, max_len, dtype=, window=)  -> zero cache
+prefill(model, tokens, max_len=, window=)           -> (last_logits, cache)
+decode_step(model, cache, token, pos, ring=, out=)  -> (logits, cache)
 
-Ported: ``ssm`` layers with MLP kind ``none`` (mamba2).  Any other mixer
-or MLP kind raises ``NotImplementedError``.
+Ported: the ``dense`` family (GQA ``attn`` layers with a dense SwiGLU or
+GELU MLP) and ``ssm`` layers (mamba2), each with MLP kind ``dense`` or
+``none``.  The other families raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -22,60 +26,124 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
-from repro_torch.config import MIX_SSM, ModelConfig
-from repro_torch.models.layers import (cast, cast_weights_, dot,
-                                      named_casts, rms_norm)
+from repro_torch.config import MIX_ATTN, MIX_SSM, ModelConfig
+from repro_torch.models import attention as attn
+from repro_torch.models.layers import (apply_mlp, cast, cast_weights_, dot,
+                                      init_mlp, named_casts, rms_norm)
 from repro_torch.models.ssm import Mamba2Mixer
 
 Cache = Dict[str, Any]
-#: the parameters the LM reads in its activation dtype (the tied embedding
-#: as the output head; the norms, the conv and the SSM's dt/A run in f32)
-CAST = ("embed", "head", "z_proj", "x_proj", "bc_proj", "dt_proj",
-        "out_proj", "D")
+#: the parameters the LM reads in its activation dtype: the embedding (the
+#: tied head) and head, the attention and MLP matrices and biases, the SSM
+#: projections (the norms, the conv and the SSM's dt/A run in f32)
+CAST = ("embed", "head", "wq", "wk", "wv", "wo", "bq", "bk", "bv", "wi",
+        "wg", "z_proj", "x_proj", "bc_proj", "dt_proj", "out_proj", "D")
 
 _NOT_PORTED = ("not ported yet: ROADMAP.md §1, item 4 (the rest of the "
-               "LLM substrate: attention KV cache, MoE, RG-LRU, MLA, "
-               "cross-attention)")
+               "LLM substrate, in order: the hybrid's RG-LRU and local "
+               "attention, MoE with MLA, the VLM's cross-attention, "
+               "encdec)")
+_PORTED_FAMILIES = ("dense", "ssm")
 
 
 def plan(cfg: ModelConfig) -> Tuple[Tuple[str, ...], Tuple[str, ...], int,
                                     Tuple[str, ...]]:
     """How layers are grouped into (prefix, scanned block, n_blocks,
-    suffix) — the JAX package's ``plan`` for the layer patterns ported so
-    far (mamba2's ``("ssm",)``); every other family raises here."""
-    if cfg.family in ("moe", "encdec") or not cfg.pattern:
+    suffix): the JAX package's ``plan`` for the families ported so far;
+    every other family raises here."""
+    if cfg.family not in _PORTED_FAMILIES:
         raise NotImplementedError(f"family {cfg.family!r} {_NOT_PORTED}")
-    n_blocks = (cfg.n_layers - len(cfg.remainder)) // len(cfg.pattern)
-    return (), tuple(cfg.pattern), n_blocks, tuple(cfg.remainder)
+    if cfg.pattern:
+        n_blocks = (cfg.n_layers - len(cfg.remainder)) // len(cfg.pattern)
+        return (), tuple(cfg.pattern), n_blocks, tuple(cfg.remainder)
+    return (), (MIX_ATTN,), cfg.n_layers, ()
+
+
+def _mlp_kind(cfg: ModelConfig) -> str:
+    """'dense' | 'none' for a layer (the JAX ``_mlp_kind`` without MoE)."""
+    if cfg.moe is not None:
+        raise NotImplementedError(f"MoE MLPs {_NOT_PORTED}")
+    return "none" if cfg.d_ff == 0 else "dense"
+
+
+def uses_pos(cfg: ModelConfig) -> bool:
+    """Whether a decode step reads its position (attention caches do)."""
+    return MIX_ATTN in plan(cfg)[1]
 
 
 class Layer(nn.Module):
-    """One residual layer: ``ln1`` and its mixer (``init_layer``)."""
+    """One residual layer (``init_layer``): ``ln1`` and its mixer
+    (``mix``), then ``ln2`` and a dense ``mlp`` unless the MLP kind is
+    ``none``."""
 
     def __init__(self, cfg: ModelConfig, kind: str, *, device, generator):
         super().__init__()
-        if kind != MIX_SSM:
+        d = cfg.d_model
+        self.kind, self.mlpk = kind, _mlp_kind(cfg)
+        self.ln1 = nn.Parameter(torch.zeros(d, device=device))
+        if kind == MIX_ATTN:
+            self.mix = attn.init_gqa(cfg, device=device, generator=generator)
+        elif kind == MIX_SSM:
+            self.mix = Mamba2Mixer(cfg, device=device, generator=generator)
+        else:
             raise NotImplementedError(f"mixer {kind!r} {_NOT_PORTED}")
-        if cfg.d_ff or cfg.moe is not None:
-            raise NotImplementedError(f"MLPs {_NOT_PORTED}")
-        self.ln1 = nn.Parameter(torch.zeros(cfg.d_model, device=device))
-        self.mix = Mamba2Mixer(cfg, device=device, generator=generator)
+        if self.mlpk == "dense":
+            self.ln2 = nn.Parameter(torch.zeros(d, device=device))
+            self.mlp = nn.ParameterDict({
+                k: nn.Parameter(v) for k, v in init_mlp(
+                    d, cfg.d_ff, cfg.mlp_kind, device=device,
+                    generator=generator).items()})
+
+    def init_cache(self, cfg: ModelConfig, batch: int, max_len: int, dtype,
+                   window: int = 0) -> Cache:
+        """``init_layer_cache``: this layer's zero cache."""
+        if self.kind == MIX_ATTN:
+            return attn.gqa_cache_init(cfg, batch, window or max_len, dtype,
+                                       self.ln1.device)
+        return self.mix.ssm_cache_init(batch, dtype)
 
 
 def apply_layer(layer: Layer, cfg: ModelConfig, x: torch.Tensor, *,
-                mode: str, cache=None, out=None) -> Tuple[torch.Tensor, Any]:
-    """``mode`` "prefill" | "decode" -> (x, new_cache).  In decode, ``out``
-    (optional) holds the tensors the new cache is written into."""
+                mode: str, cache=None, pos=None, window: int = 0,
+                ring: bool = False, max_len: int = 0,
+                out=None) -> Tuple[torch.Tensor, Any]:
+    """``mode`` "train" | "prefill" | "decode" -> (x, new_cache), the new
+    cache None in train.  In decode, ``out`` (optional) holds the tensors
+    the new cache is written into."""
     h = rms_norm(x, layer.ln1, cfg.rms_eps)
-    if mode == "prefill":
-        a, new_cache = layer.mix.ssm_full(h, return_cache=True)
-    elif mode == "decode":
-        a, new_cache = layer.mix.ssm_decode(h, cache, out=out)
+    new_cache = None
+    if layer.kind == MIX_ATTN:
+        if mode == "train":
+            a = attn.gqa_full(layer.mix, cfg, h, window=window)
+        elif mode == "prefill":
+            L = min(window, max_len) if window else max_len
+            a, new_cache = attn.gqa_prefill(layer.mix, cfg, h, max_len=L,
+                                            window=window)
+        elif mode == "decode":
+            if pos is None:
+                raise ValueError("an attention layer's decode step needs "
+                                 "its position")
+            a, new_cache = attn.gqa_decode(layer.mix, cfg, h, cache, pos,
+                                           ring=ring, out=out)
+        else:
+            raise ValueError(f"unknown mode {mode!r}")
     else:
-        raise ValueError(f"unknown mode {mode!r}")
-    return x + a, new_cache
+        if mode == "train":
+            a = layer.mix.ssm_full(h)
+        elif mode == "prefill":
+            a, new_cache = layer.mix.ssm_full(h, return_cache=True)
+        elif mode == "decode":
+            a, new_cache = layer.mix.ssm_decode(h, cache, out=out)
+        else:
+            raise ValueError(f"unknown mode {mode!r}")
+    x = x + a
+    if layer.mlpk == "dense":
+        x = x + apply_mlp(layer.mlp, rms_norm(x, layer.ln2, cfg.rms_eps),
+                          cfg.mlp_kind)
+    return x, new_cache
 
 
 class LM(nn.Module):
@@ -89,11 +157,11 @@ class LM(nn.Module):
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         device = resolve_device(device)
+        prefix, block, n_blocks, suffix = plan(cfg)
         if generator is None:
             generator = torch.Generator(device=device).manual_seed(0)
         kw = dict(device=device, generator=generator)
         self.cfg = cfg
-        prefix, block, n_blocks, suffix = plan(cfg)
         d = cfg.d_model
         self.embed = nn.Parameter(torch.randn((cfg.vocab, d), **kw) * 0.02)
         self.ln_f = nn.Parameter(torch.zeros(d, device=device))
@@ -114,6 +182,10 @@ class LM(nn.Module):
     @property
     def device(self) -> torch.device:
         return self.embed.device
+
+    def embed_tokens(self, tokens) -> torch.Tensor:
+        tokens = torch.as_tensor(tokens, dtype=torch.long, device=self.device)
+        return self.embed[tokens].to(getattr(torch, self.cfg.dtype))
 
     def logits(self, x: torch.Tensor) -> torch.Tensor:
         x = rms_norm(x, self.ln_f, self.cfg.rms_eps)
@@ -152,45 +224,106 @@ def _unbind(tree: Any, n: int) -> List[Any]:
     return list(tree.unbind(0))
 
 
-def _tokens(model: LM, tokens) -> torch.Tensor:
-    return torch.as_tensor(tokens, dtype=torch.long, device=model.device)
+def _block(bm: nn.ModuleDict, cfg: ModelConfig,
+           x: torch.Tensor) -> torch.Tensor:
+    for layer in bm.values():
+        x, _ = apply_layer(layer, cfg, x, mode="train")
+    return x
+
+
+def forward_train(model: LM, tokens, remat: bool = False
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """tokens (B,S) -> (logits (B,S,V), aux).  Differentiable; ``remat``
+    recomputes each scanned block in the backward (``jax.checkpoint`` of
+    the scan body).  ``aux`` is 0: no ported MLP has a router."""
+    cfg = model.cfg
+    x = model.embed_tokens(tokens)
+    for layer in model.prefix:
+        x, _ = apply_layer(layer, cfg, x, mode="train")
+    for bm in model.blocks:
+        if remat and torch.is_grad_enabled():
+            x = checkpoint(_block, bm, cfg, x, use_reentrant=False)
+        else:
+            x = _block(bm, cfg, x)
+    for layer in model.suffix:
+        x, _ = apply_layer(layer, cfg, x, mode="train")
+    return model.logits(x), torch.zeros((), device=x.device)
+
+
+def lm_loss(model: LM, batch: Dict[str, Any], remat: bool = False
+            ) -> torch.Tensor:
+    """Mean next-token cross-entropy of ``batch["tokens"]`` against
+    ``batch["labels"]`` (logits in f32), plus the aux loss."""
+    logits, aux = forward_train(model, batch["tokens"], remat=remat)
+    logits = logits.float()
+    labels = torch.as_tensor(batch["labels"], dtype=torch.long,
+                             device=logits.device)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.take_along_dim(logits, labels[..., None], dim=-1)[..., 0]
+    return torch.mean(logz - gold) + aux
 
 
 @torch.no_grad()
-def prefill(model: LM, tokens, max_len: int = 0
+def init_cache(model: LM, batch: int, max_len: int,
+               dtype: Optional[torch.dtype] = None, window: int = 0
+               ) -> Cache:
+    """Zero cache for pure decode runs (no prefill), in the activation
+    dtype by default (the SSM states stay f32)."""
+    cfg = model.cfg
+    dtype = dtype or getattr(torch, cfg.dtype)
+    n = len(model.blocks)
+    one = {name: layer.init_cache(cfg, batch, max_len, dtype, window)
+           for name, layer in model.blocks[0].items()} if n else {}
+    return {"prefix": [layer.init_cache(cfg, batch, max_len, dtype, window)
+                       for layer in model.prefix],
+            "blocks": _map(lambda a: a.expand((n,) + a.shape).clone(), one),
+            "suffix": [layer.init_cache(cfg, batch, max_len, dtype, window)
+                       for layer in model.suffix]}
+
+
+@torch.no_grad()
+def prefill(model: LM, tokens, max_len: int = 0, window: int = 0
             ) -> Tuple[torch.Tensor, Cache]:
     """Run the prompt (B,S), build the cache; returns last-position
-    logits (B,1,V).  ``max_len`` sizes attention caches, which the ported
-    mixers do not have."""
+    logits (B,1,V).  ``max_len`` (default S) sizes attention caches;
+    ``window`` caps them at the window, in the ring layout when the prompt
+    fills it."""
     cfg = model.cfg
-    x = model.embed[_tokens(model, tokens)].to(getattr(torch, cfg.dtype))
+    x = model.embed_tokens(tokens)
+    max_len = max_len or x.shape[1]
+    kw = dict(mode="prefill", max_len=max_len, window=window)
     caches: Cache = {"prefix": [], "suffix": []}
     for layer in model.prefix:
-        x, c = apply_layer(layer, cfg, x, mode="prefill")
+        x, c = apply_layer(layer, cfg, x, **kw)
         caches["prefix"].append(c)
     blk: List[Dict[str, Any]] = []
     for bm in model.blocks:
         cs = {}
         for name, layer in bm.items():
-            x, cs[name] = apply_layer(layer, cfg, x, mode="prefill")
+            x, cs[name] = apply_layer(layer, cfg, x, **kw)
         blk.append(cs)
     caches["blocks"] = _stack(blk)
     for layer in model.suffix:
-        x, c = apply_layer(layer, cfg, x, mode="prefill")
+        x, c = apply_layer(layer, cfg, x, **kw)
         caches["suffix"].append(c)
     return model.logits(x[:, -1:]), caches
 
 
 @torch.no_grad()
-def decode_step(model: LM, cache: Cache, token, pos=None,
+def decode_step(model: LM, cache: Cache, token, pos=None, ring: bool = False,
                 out: Optional[Cache] = None) -> Tuple[torch.Tensor, Cache]:
-    """token (B,1) -> (logits (B,1,V), cache).  ``pos`` places attention
-    caches' writes, which the ported mixers do not have.  The input cache is
-    left as it is (forked caches may share it); the new one is written into
-    ``out``'s tensors when given (a cache of the same structure and shapes,
-    as a decode graph's second cache set), else into new ones."""
+    """token (B,1) at position ``pos`` (an int or a 0-dim integer tensor;
+    attention caches need it, SSM states do not) -> (logits (B,1,V),
+    cache).  ``ring`` addresses attention caches as ring buffers.  The
+    new cache is written into ``out``'s tensors when given (a cache of the
+    same structure and shapes; ``out`` may be ``cache`` itself, updated in
+    place, which only a cache that nothing else reads may be), else into
+    new ones, and ``cache`` is left as it is (forked caches may share
+    it)."""
     cfg = model.cfg
-    x = model.embed[_tokens(model, token)].to(getattr(torch, cfg.dtype))
+    x = model.embed_tokens(token)
+    kw = dict(mode="decode", pos=pos, ring=ring)
+    n = len(model.blocks)
     if out is None:
         # each layer writes its new cache into its slot of freshly allocated
         # stacked leaves: nothing is re-stacked per step
@@ -199,15 +332,14 @@ def decode_step(model: LM, cache: Cache, token, pos=None,
                "suffix": [None] * len(model.suffix)}
     new: Cache = {"prefix": [], "blocks": out["blocks"], "suffix": []}
     for layer, c, o in zip(model.prefix, cache["prefix"], out["prefix"]):
-        x, nc = apply_layer(layer, cfg, x, mode="decode", cache=c, out=o)
+        x, nc = apply_layer(layer, cfg, x, cache=c, out=o, **kw)
         new["prefix"].append(nc)
-    n = len(model.blocks)
     for bm, bc, bn in zip(model.blocks, _unbind(cache["blocks"], n),
                           _unbind(out["blocks"], n)):
         for name, layer in bm.items():
-            x, _ = apply_layer(layer, cfg, x, mode="decode", cache=bc[name],
-                               out=bn[name])
+            x, _ = apply_layer(layer, cfg, x, cache=bc[name], out=bn[name],
+                               **kw)
     for layer, c, o in zip(model.suffix, cache["suffix"], out["suffix"]):
-        x, nc = apply_layer(layer, cfg, x, mode="decode", cache=c, out=o)
+        x, nc = apply_layer(layer, cfg, x, cache=c, out=o, **kw)
         new["suffix"].append(nc)
     return model.logits(x), new

@@ -267,63 +267,67 @@ class SegmentRunner:
 
 
 class DecodeRunner:
-    """``transformer.decode_step`` as CUDA graphs: the JAX launcher's
+    """``transformer.decode_step`` as a CUDA graph: the JAX launcher's
     ``jax.jit(decode_step)``.  Per config, batch and cache shape it holds
-    two static cache sets and two graphs that ping-pong between them (one
-    reads set 0 and writes set 1, the other the reverse), so a step copies
-    no cache.  Called as ``decode_step`` is, ``runner(cache, token, pos) ->
-    (logits, cache)``: the cache returned is one of the two sets, and a
-    returned cache is overwritten by the step after next.  A decode starts
-    from a cache the runner did not return (the prefill's, a fork): that
-    one is copied into set 0, and the model's cast-once weights are
-    refreshed then, so weights change between decodes, not within one.
-    Fed back the cache it returned, a step only fills the token and
-    replays.  The prefill stays eager (one call per prompt length)."""
+    one static cache set, a static token and a static 0-dim position, and
+    one graph that reads the set and writes the step's new cache back into
+    it (``decode_step(out=)`` on the set itself): an attention layer writes
+    only its new row, at the position the graph reads from the device, so
+    one graph serves every position and a step copies no cache.  Called as
+    ``decode_step`` is, ``runner(cache, token, pos) -> (logits, cache)``:
+    the cache returned is the set, which the next step updates in place.
+    A decode starts from a cache the runner did not return (the prefill's,
+    a fork), which is copied into the set and left as it is; the model's
+    cast-once weights are refreshed then, so weights change between
+    decodes, not within one.  Fed back the cache it returned, a step only
+    fills the token and the position and replays.  The prefill stays
+    eager (one call per prompt length)."""
 
     def __init__(self, model: tfm.LM):
         self.model = model
         self.graphs: Dict[Tuple, Tuple] = {}
         self.capture_s = 0.0
         self.replays = 0
-        self._live = None                 # the graphs of the decode under way
+        self._live = None                 # the graph of the decode under way
 
     def capture(self, cache: tfm.Cache, token) -> Tuple:
-        """The model's cast-once weights refreshed, and the graphs for
+        """The model's cast-once weights refreshed, and the graph for
         ``cache`` and ``token``'s shapes, captured on first use: ``(cache
-        sets, static token, ((graph, (logits, cache), launches) for set
-        0 -> 1 and for 1 -> 0))``."""
+        set, static token, static position, (graph, (logits, cache),
+        launches))``.  The warm-up and the capture run on the set, which
+        the decode's first step then overwrites with its cache."""
         model = self.model
         model.cast_weights_()
         token = torch.as_tensor(token, dtype=torch.long, device=model.device)
         sig = (model.cfg,) + signature((cache, token))
         if sig not in self.graphs:
             t0 = time.perf_counter()
-            sets = (_map(torch.clone, cache), _map(torch.empty_like, cache))
+            cset = _map(torch.clone, cache)
             tok = token.clone()
-            steps = tuple(capture(
-                lambda c, t, o: tfm.decode_step(model, c, t, out=o),
-                sets[i], tok, sets[1 - i]) for i in (0, 1))
-            self.graphs[sig] = (sets, tok, steps)
+            pos = torch.zeros((), dtype=torch.long, device=model.device)
+            step = capture(
+                lambda c, t, p: tfm.decode_step(model, c, t, p, out=c),
+                cset, tok, pos)
+            self.graphs[sig] = (cset, tok, pos, step)
             self.capture_s += time.perf_counter() - t0
         return self.graphs[sig]
 
     def __call__(self, cache: tfm.Cache, token, pos=None
                  ) -> Tuple[torch.Tensor, tfm.Cache]:
-        del pos         # the ported mixers place no cache write by position
+        if pos is None and tfm.uses_pos(self.model.cfg):
+            raise ValueError(f"{self.model.cfg.name}'s decode step needs "
+                             f"its position")
         live = self._live
-        if live is None or not (cache is live[0][0] or cache is live[0][1]):
+        if live is None or cache is not live[0]:
             live = self._live = self.capture(cache, token)
-            sets = live[0]
-            if not (cache is sets[0] or cache is sets[1]):
-                for s, x in zip(_leaves(sets[0]), _leaves(cache)):
+            if cache is not live[0]:
+                for s, x in zip(_leaves(live[0]), _leaves(cache)):
                     s.copy_(x)
-                cache = sets[0]
-        sets, tok, steps = live
-        i = 0 if cache is sets[0] else 1
+        cset, tok, static_pos, (graph, (logits, _), launches) = live
         tok.copy_(token if isinstance(token, torch.Tensor)
                   else torch.as_tensor(token))
-        graph, (logits, _), launches = steps[i]
+        static_pos.fill_(0 if pos is None else pos)
         graph.replay()
         _replayed(launches)
         self.replays += 1
-        return logits.clone(), sets[1 - i]
+        return logits.clone(), cset

@@ -159,8 +159,11 @@ def image_from_jax(params: Mapping, *, device="cuda") -> ImageTower:
 def lm_from_jax(params: Mapping, cfg: ModelConfig, *, device="cuda") -> LM:
     """An :class:`LM` holding ``transformer.init_params`` weights:
     ``embed``, ``ln_f``, the ``prefix`` / ``suffix`` layer lists (empty for
-    mamba2), the stacked ``blocks`` split per layer, and ``head`` unless the
-    embeddings are tied."""
+    the ported families), the stacked ``blocks`` split per layer (``ln1``,
+    the mixer's ``mix.*``: GQA ``wq`` / ``wk`` / ``wv`` / ``wo`` with its
+    optional biases and q/k norms, or the SSM's; ``ln2`` and ``mlp.wi`` /
+    ``wg`` / ``wo`` for a dense MLP), and ``head`` unless the embeddings
+    are tied."""
     model = LM(cfg, device=device)
     load_numpy(model, _unstack_blocks(dict(_flatten(params))))
     return model

@@ -6,7 +6,8 @@ A CUDA graph exists only on the card, so here ``runners._warm_up`` and
 ``runners._record`` are swapped for CPU stand-ins (the "graph" reruns the
 function and writes into the outputs it returned first, as a replay
 overwrites its memory pool); the keys, static buffers, launch-count
-deltas, output copies and the decode ping-pong are the runners' own code.
+deltas, output copies and the decode's cache set and position are the
+runners' own code.
 The replay on the card is held to the eager path by the ``cuda`` test
 below and by ``chip_smoke.py``.  The machine with the card has no JAX, so
 the two tests that hold the port to the JAX package import it themselves;
@@ -484,9 +485,9 @@ def test_segment_runner_replays_equal_eager_and_outputs_are_copies(
 
 
 def test_decode_runner_matches_the_eager_loop(cpu_graphs):
-    """The ping-pong between the two cache sets, the copy of a foreign
-    cache and a fresh logits tensor per step: greedy tokens equal an eager
-    ``decode_step`` loop token for token, logits bitwise."""
+    """The one cache set updated in place, the copy of a foreign cache
+    (left as it was) and a fresh logits tensor per step: greedy tokens
+    equal an eager ``decode_step`` loop token for token, logits bitwise."""
     cfg = replace(get_config("mamba2-780m", smoke=True), dtype="float32")
     model = _live(tfm.LM(cfg, device="cpu"), 10)
     prompt = np.random.RandomState(1).randint(0, cfg.vocab, (1, 21))
@@ -505,12 +506,44 @@ def test_decode_runner_matches_the_eager_loop(cpu_graphs):
         outs[name] = (torch.cat(toks, 1), lg)
     assert torch.equal(outs["graph"][0], outs["eager"][0])
     assert torch.equal(outs["graph"][1], outs["eager"][1])
-    (sets, _, _), = run.graphs.values()
-    assert c is sets[0] and run.replays == 6
-    # a cache of the same shapes from elsewhere is copied into set 0
+    (cset, _, _, _), = run.graphs.values()
+    assert c is cset and run.replays == 6
+    # a cache of the same shapes from elsewhere is copied into the set
+    before = [x.clone() for x in kvcache._leaves(cache)]
     lg, c2 = run(cache, tok0)
     want, _ = tfm.decode_step(model, cache, tok0)
-    assert torch.equal(lg, want) and c2 is sets[1]
+    assert torch.equal(lg, want) and c2 is cset
+    assert all(torch.equal(a, b)
+               for a, b in zip(kvcache._leaves(cache), before))
+
+
+def test_decode_runner_places_rows_at_the_device_position(cpu_graphs):
+    """A dense LM's decode through one graph for every position: the
+    position is a static 0-dim tensor filled before each replay, so each
+    step's logits are bitwise the eager ``decode_step``'s and the set's KV
+    rows those of the eager cache, step by step; the input cache is left
+    as it was, and a step without its position raises."""
+    cfg = replace(get_config("phi3-mini-3.8b", smoke=True), dtype="float32")
+    model = _live(tfm.LM(cfg, device="cpu"), 17)
+    prompt = np.random.RandomState(2).randint(0, cfg.vocab, (1, 14))
+    logits, trunk = tfm.prefill(model, prompt, max_len=24)
+    cache = fork_model_cache(trunk, 2)
+    before = [x.clone() for x in kvcache._leaves(cache)]
+    run = runners.DecodeRunner(model)
+    tok = logits.argmax(-1).repeat_interleave(2, 0)
+    eager, graph = cache, cache
+    for i in range(6):
+        want, eager = tfm.decode_step(model, eager, tok, 14 + i)
+        got, graph = run(graph, tok, 14 + i)
+        assert torch.equal(got, want)
+        for a, b in zip(kvcache._leaves(graph), kvcache._leaves(eager)):
+            assert torch.equal(a, b)
+        tok = want.argmax(-1)
+    assert len(run.graphs) == 1 and run.replays == 6
+    assert all(torch.equal(a, b)
+               for a, b in zip(kvcache._leaves(cache), before))
+    with pytest.raises(ValueError, match="position"):
+        run(graph, tok)
 
 
 def test_decode_runner_refreshes_weights_when_a_decode_starts(
@@ -540,8 +573,9 @@ def test_decode_runner_refreshes_weights_when_a_decode_starts(
 @pytest.mark.cuda
 def test_cuda_replay_equals_eager():
     """On the card: a captured branch segment of the smoke DiT on the
-    kernel routes replays bitwise equal to the eager body, twice, and a
-    decode graph gives the eager loop's tokens."""
+    kernel routes replays bitwise equal to the eager body, twice, a decode
+    graph gives the eager loop's tokens, and a dense LM's decode graph (one
+    for every position) the eager steps' logits bitwise."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: CUDA graphs and the hand-written "
                     "kernels run only there")
@@ -591,3 +625,19 @@ def test_cuda_replay_equals_eager():
             out.append(tok)
         toks[name] = torch.cat(out, 1)
     assert torch.equal(toks["graph"], toks["eager"])
+
+    dcfg = replace(get_config("phi3-mini-3.8b", smoke=True),
+                   attn_impl="kernel")
+    dense = _live(tfm.LM(dcfg, device="cpu"), 18).to(dev)
+    dense.cast_weights_()
+    logits, trunk = tfm.prefill(dense, np.arange(40)[None] % dcfg.vocab,
+                                max_len=48)
+    cache = fork_model_cache(trunk, 2)
+    drun = runners.DecodeRunner(dense)
+    eager, graph = cache, cache
+    tok = logits.argmax(-1).repeat_interleave(2, 0)
+    for i in range(5):
+        want, eager = tfm.decode_step(dense, eager, tok, 40 + i)
+        got, graph = drun(graph, tok, 40 + i)
+        assert torch.equal(got, want)
+        tok = want.argmax(-1)
