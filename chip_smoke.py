@@ -139,7 +139,25 @@ without the result line:
    ``main()`` at smoke size in a child process, without and with
    ``--trunk-cache`` (its group lines equal to ``llm_example_lines`` on
    the tokens its groups served);
-5c. train — the training path (``phase_train``) at the full ``sage-dit``
+5c. hybrid_moe — the hybrid and MoE LMs (``phase_hybrid_moe``):
+   ``recurrentgemma-2b`` at full width and depth (26 layers: 8
+   ``(rglru, rglru, local_attn)`` super-blocks and two RG-LRU layers,
+   d_model 2560, 10 heads of 256 with one KV head, window 2048, vocab
+   256000, tied embeddings, bf16, flash on the kernel route: sm90 at the
+   256 width, once a local layer a prefill) through the launcher in both
+   modes at the dense path's shapes and once at 4 x 2560 (the local
+   caches in the ring layout), its decode graph against eager
+   ``decode_step`` over 32 steps from a 4 x 2040 prefill, across the
+   2048-row ring's wrap (every step bitwise), ``cached_prefix_prefill``
+   over g0, g1, g0, g1, the decode step's bytes, prefill/decode against
+   ``forward_train``, one traced prefill and one traced replayed decode
+   step; then ``deepseek-v2-lite-16b`` at full width cut to 12 layers
+   (MLA and the routed experts in plain torch: no kernel of the port's
+   launches) the same way, its byte floor also with only the experts the
+   step's tokens go to and its consistency check at capacity factor 8.0;
+   then ``kimi-k2`` at smoke size (GQA + MoE) in the launcher's
+   shared-prefix mode;
+5d. train — the training path (``phase_train``) at the full ``sage-dit``
    width (f32 master weights, bf16 activations, remat, the plain attention
    route: the kernels have no backward): three SAGE steps (Eq. 3, K x N =
    4 x 3, 28 denoiser rows a step) full fine-tune with AdamW, three with
@@ -1508,6 +1526,16 @@ FLASH_CASES = [
      128, True, 0, BF16),
     ("granite_prefill causal 1x1024x1024 h48/1 d128", 1, 1024, 1024, 48, 1,
      128, True, 0, BF16),
+    # the hybrid's local attention (recurrentgemma-2b: the <256> width, GQA
+    # 10/1, a 2048 window) at the launcher's prompts, 1024 (in f32 too: the
+    # prefill/decode consistency check's f32 side) and 2560 (the window
+    # binds); kimi-k2 smoke's shared-prefix trunk (GQA 4/2, d64)
+    ("rgemma_local causal 4x1024x1024 h10/1 d256 w2048", 4, 1024, 1024, 10,
+     1, 256, True, 2048, BOTH),
+    ("rgemma_local causal 4x2560x2560 h10/1 d256 w2048", 4, 2560, 2560, 10,
+     1, 256, True, 2048, BF16),
+    ("kimi_smoke_prefill causal 1x1024x1024 h4/2 d64", 1, 1024, 1024, 4, 2,
+     64, True, 0, BF16),
 ]
 
 
@@ -1725,7 +1753,21 @@ PATHS = {"ddim": dict(total_steps=30),
          "mamba2": dict(arch="mamba2-780m", batch=4, prompt_len=1024,
                         gen=32, groups=2, members=4, tail=64),
          "dense": dict(arch="phi3-mini-3.8b", batch=4, prompt_len=1024,
-                       gen=32, groups=2, members=4, tail=64)}
+                       gen=32, groups=2, members=4, tail=64),
+         # the hybrid: the dense path's shapes, then the launcher once at
+         # long_prompt (local caches in the ring layout) and a decode graph
+         # from a wrap_prompt prefill across the ring's last row
+         "hybrid": dict(arch="recurrentgemma-2b", batch=4, prompt_len=1024,
+                        gen=32, groups=2, members=4, tail=64,
+                        long_prompt=2560, wrap_prompt=2040),
+         # MoE with MLA, its depth cut to n_layers (a dense first layer and
+         # 11 MoE layers: 6.93e9 parameters, 41.6 GB with the bf16 copies;
+         # all 27 layers would be 15.7e9, ~94 GB)
+         "moe": dict(arch="deepseek-v2-lite-16b", batch=4, prompt_len=1024,
+                     gen=32, groups=2, members=4, tail=64, n_layers=12),
+         # GQA + MoE at smoke size (1.03e12 parameters do not fit one card)
+         "moe:kimi": dict(arch="kimi-k2-1t-a32b", batch=4, prompt_len=1024,
+                          gen=32)}
 DIT_PATHS = ("ddim", "dpmpp")
 # kernels each path must launch; "never" must stay at 0 launches
 PATH_KERNELS = {"ddim": dict(needs=("flash_attention", "ddim_step"),
@@ -1761,7 +1803,16 @@ PATH_KERNELS = {"ddim": dict(needs=("flash_attention", "ddim_step"),
                 **{p: dict(needs=("flash_attention/sm90",),
                            never=("flash_attention/tf32x3", "ddim_step",
                                   "dpmpp_step", "group_mean", "ssd_scan"))
-                   for p in ("dense", "dense:cache", "dense:qwen3")}}
+                   for p in ("dense", "dense:cache", "dense:qwen3",
+                             # the hybrid's local attention and kimi's GQA
+                             "hybrid", "hybrid:cache", "moe:kimi")},
+                # MLA attends through plain torch (query/key width 192,
+                # value width 128), and the experts are batched products:
+                # the deepseek path launches no kernel of the port's
+                **{p: dict(needs=(),
+                           never=("flash_attention", "ddim_step",
+                                  "dpmpp_step", "group_mean", "ssd_scan"))
+                   for p in ("moe", "moe:cache")}}
 KERNELS = ("flash_attention", "ddim_step", "dpmpp_step", "group_mean",
            "ssd_scan")
 # the sampler-step kernels, whose bytes bound lies under a launch's cost
@@ -3435,14 +3486,15 @@ def _host_ms(fn, reps=3):
     return best * 1e3
 
 
-def _cached_prefix(failures, model, groups, max_len, path, kernel):
+def _cached_prefix(failures, model, groups, max_len, path, kernel,
+                   per_prefill=None):
     """``cached_prefix_prefill`` over the shared-prefix groups in the order
     g0, g1, g0, g1 through one ``TrunkCache`` whose budgets are one payload
     on the device and two on the host (a payload: the trunk prefill's
     logits and state or KV cache, by ``cache_bytes``): miss, miss with a
     spill, then a host hit with its promotion (and a spill) twice.  A miss
-    must launch ``kernel`` (a ``runners.launch_counts`` key) once a layer,
-    a hit none of it; a hit counts only the tails' token steps and gives
+    must launch ``kernel`` (a ``runners.launch_counts`` key)
+    ``per_prefill`` times (default: once a layer), a hit none of it; a hit counts only the tails' token steps and gives
     logits and caches bitwise those of the group's miss.  Printed: each
     call's wall with its prefill, lookup and insert milliseconds (each
     between device syncs), and the CRC, spill and promotion milliseconds
@@ -3506,7 +3558,8 @@ def _cached_prefix(failures, model, groups, max_len, path, kernel):
                                 f"logits or caches differ from the miss's")
         else:
             first[g] = (logits, caches)
-        want = (0 if hit else model.cfg.n_layers,
+        want = (0 if hit else (model.cfg.n_layers if per_prefill is None
+                               else per_prefill),
                 _expected_steps(groups[g])["token_steps"]
                 - (prefix if hit else 0))
         ms = {k: round((spent[k] - spent0[k]) * 1e3, 3) for k in spent}
@@ -3615,51 +3668,106 @@ DENSE_BF16 = {"max": 1.5, "mean": 1.25}
 LLM_EXAMPLE_RUNS = ((), ("--trunk-cache",))
 
 
-def _dense_model(arch, dev, seed, **over):
-    """``arch``'s full config on the kernel route (``over`` may cut its
-    depth), random weights from ``seed``, cast once to bf16."""
+def _lm_model(arch, dev, seed, smoke=False, tag="dense", **over):
+    """``arch``'s full (or smoke) config on the kernel route (``over`` may
+    cut its depth), random weights from ``seed``, cast once to bf16."""
     import torch
     from repro_torch.config import get_config, replace
     from repro_torch.models import transformer as tfm
-    cfg = replace(get_config(arch), attn_impl="kernel", **over)
+    cfg = replace(get_config(arch, smoke=smoke), attn_impl="kernel", **over)
     t0 = time.perf_counter()
     model = tfm.LM(cfg, device=dev,
                    generator=torch.Generator(device=dev).manual_seed(seed))
     cast = model.cast_weights_()
     torch.cuda.synchronize()
     n = sum(p.numel() for p in model.parameters())
-    log(f"[e2e:dense] {cfg.name}: {cfg.n_layers} attn layers d_model "
+    kinds = [lay.kind + ("+moe" if lay.mlpk == "moe" else "")
+             for lay in _lm_layers(model)]
+    layers = ", ".join(f"{kinds.count(k)} {k}" for k in dict.fromkeys(kinds))
+    extra = ""
+    if cfg.moe is not None:
+        m = cfg.moe
+        extra += (f" moe {m.n_routed} routed top-{m.top_k} x {m.d_ff_expert}"
+                  f" + {m.n_shared} shared, dense d_ff {m.d_ff_dense}, "
+                  f"capacity_factor {m.capacity_factor}")
+    if cfg.attn_kind == "mla":
+        extra += f" {cfg.mla}"
+    if cfg.rglru is not None:
+        extra += f" {cfg.rglru} window {cfg.window}"
+    log(f"[e2e:{tag}] {cfg.name}: {cfg.n_layers} layers ({layers}) d_model "
         f"{cfg.d_model} heads {cfg.n_heads}/{cfg.n_kv_heads} x {cfg.hd} "
-        f"d_ff {cfg.d_ff} {cfg.mlp_kind} qk_norm={cfg.qk_norm} "
-        f"qkv_bias={cfg.qkv_bias} vocab {cfg.vocab} dtype {cfg.dtype} "
-        f"attn_impl {cfg.attn_impl}; {n:,} params ({n * 4 / 2 ** 30:.2f} GiB "
-        f"f32); set-up {time.perf_counter() - t0:.2f} s; weights cast once "
-        f"to {cfg.dtype}: {cast / 2 ** 30:.2f} GiB")
+        f"attn {cfg.attn_kind} d_ff {cfg.d_ff} {cfg.mlp_kind} qk_norm="
+        f"{cfg.qk_norm} qkv_bias={cfg.qkv_bias} tied={cfg.tie_embeddings} "
+        f"vocab {cfg.vocab} dtype {cfg.dtype} attn_impl {cfg.attn_impl}"
+        f"{extra}; {n:,} params ({n * 4 / 2 ** 30:.2f} GiB f32); set-up "
+        f"{time.perf_counter() - t0:.2f} s; weights cast once to "
+        f"{cfg.dtype}: {cast / 2 ** 30:.2f} GiB")
     return model
 
 
+def _lm_layers(model):
+    """The LM's layers in order: prefix, each scanned block's, suffix."""
+    return (list(model.prefix) + [layer for bm in model.blocks
+                                  for layer in bm.values()]
+            + list(model.suffix))
+
+
+def _attn_widths(cfg):
+    """An attention layer's (query/key, value) widths a head: MLA's
+    nope + rope and v_head_dim, else the head dim twice."""
+    if cfg.attn_kind == "mla":
+        m = cfg.mla
+        return m.qk_nope_head_dim + m.qk_rope_head_dim, m.v_head_dim
+    return cfg.hd, cfg.hd
+
+
 def _prefill_flops(model, batch, seq):
-    """A prefill's operations: 2 a weight of every layer matrix a token,
-    the head on the last token of each row, and causal attention (4 a
-    visible pair a head a head dim, both products)."""
+    """A prefill's operations: 2 a weight of every layer matrix a token (of
+    an MoE layer's routed experts, the ``top_k`` a token goes to), the head
+    on the last token of each row, and causal attention (2 a visible pair a
+    head a query/key and a value width; a local layer sees its window)."""
+    from repro_torch.config import MIX_ATTN, MIX_LOCAL_ATTN
     cfg = model.cfg
     layer = sum(p.numel() for n, p in model.named_parameters()
                 if p.ndim == 2 and n.split(".")[0] in ("prefix", "blocks",
                                                       "suffix"))
-    pairs = seq * (seq + 1) // 2
-    return (2.0 * layer * batch * seq + 2.0 * cfg.d_model * cfg.vocab * batch
-            + 4.0 * batch * cfg.n_heads * pairs * cfg.hd * cfg.n_layers)
+    dqk, dv = _attn_widths(cfg)
+    attn = experts = 0.0
+    for lay in _lm_layers(model):
+        if lay.kind in (MIX_ATTN, MIX_LOCAL_ATTN):
+            w = cfg.window if lay.kind == MIX_LOCAL_ATTN else 0
+            pairs = (seq * (seq + 1) // 2 if not w or w >= seq
+                     else w * (w + 1) // 2 + (seq - w) * w)
+            attn += 2.0 * batch * cfg.n_heads * pairs * (dqk + dv)
+        if lay.mlpk == "moe":
+            experts += 3 * cfg.moe.top_k * cfg.d_model * cfg.moe.d_ff_expert
+    return (2.0 * (layer + experts) * batch * seq
+            + 2.0 * cfg.d_model * cfg.vocab * batch + attn)
 
 
-def _decode_floor_bytes(model, batch, pos):
+def _decode_floor_bytes(model, batch, pos, max_len=None, active=None):
     """The bytes one decode step at ``pos`` must move: each weight it reads
     once, in the dtype it is read in (the cast-once copies; the norms in
-    f32; ``batch`` rows of the embedding), the K and V rows 0..pos of every
-    layer once, the new rows and the logits written once."""
+    f32; ``batch`` rows of the embedding), each cache row it attends to
+    once (an attention cache of ``max_len`` rows, a local one of
+    ``min(window, max_len)``, holds rows 0..pos, or its last rows), each
+    recurrent state read and written, the new rows and the logits written
+    once.  ``active`` (MoE) holds, per MoE layer in order, the experts the
+    step's tokens go to: only their weights count (by default every
+    expert's, as the all-expert batched product reads them)."""
     import torch
+    from repro_torch.config import MIX_ATTN, MIX_LOCAL_ATTN
     cfg = model.cfg
-    bf = torch.tensor([], dtype=getattr(torch, cfg.dtype)).element_size()
+    dtype = getattr(torch, cfg.dtype)
+    bf = torch.tensor([], dtype=dtype).element_size()
     cast = {id(p) for p in model._cast}
+    layers = _lm_layers(model)
+    share = {}
+    if active is not None:
+        moe = [lay.moe for lay in layers if lay.mlpk == "moe"]
+        for m, n in zip(moe, active):
+            for w in (m.wi, m.wg, m.wo):
+                share[id(w)] = n / cfg.moe.n_routed
     total = 0
     for name, p in model.named_parameters():
         if name == "embed":
@@ -3667,9 +3775,22 @@ def _decode_floor_bytes(model, batch, pos):
             if cfg.tie_embeddings:
                 total += p.numel() * bf
         else:
-            total += p.numel() * (bf if id(p) in cast else p.element_size())
-    row = 2 * batch * cfg.n_kv_heads * cfg.hd * bf * cfg.n_layers
-    return total + row * (pos + 1) + row + batch * cfg.vocab * bf
+            total += share.get(id(p), 1.0) * p.numel() * (
+                bf if id(p) in cast else p.element_size())
+    big = float("inf") if max_len is None else max_len
+    for lay in layers:
+        if lay.kind in (MIX_ATTN, MIX_LOCAL_ATTN):
+            rows = min(cfg.window, big) if lay.kind == MIX_LOCAL_ATTN else big
+            if cfg.attn_kind == "mla":
+                row = batch * (cfg.mla.kv_lora_rank
+                               + cfg.mla.qk_rope_head_dim) * bf
+            else:
+                row = 2 * batch * cfg.n_kv_heads * cfg.hd * bf
+            total += row * min(pos + 1, rows) + row
+        else:                    # a recurrent state, read and written
+            total += 2 * sum(x.numel() * x.element_size() for x in
+                             lay.init_cache(cfg, batch, 1, dtype).values())
+    return int(total) + batch * cfg.vocab * bf
 
 
 def _op_bytes(fn):
@@ -3678,7 +3799,7 @@ def _op_bytes(fn):
     or an allocation (``empty``, ``_unsafe_view``) moves none; an ``out=`` tensor is only
     written; ``copy_`` reads its
     source and writes its destination; a gather (``index``,
-    ``index_select``) reads the rows it returns; ``index_copy_`` and
+    ``index_select``, ``gather``) reads the rows it returns; ``index_copy_`` and
     ``index_put_`` write the rows they are given.  Returns (bytes, bytes
     by op)."""
     import torch
@@ -3687,7 +3808,8 @@ def _op_bytes(fn):
     aten = torch.ops.aten
     allocations = (aten.empty, aten.empty_like, aten.empty_strided,
                    aten._unsafe_view)
-    gathers = (aten.index.Tensor, aten.index_select.default)
+    gathers = (aten.index.Tensor, aten.index_select.default,
+               aten.gather.default)
     scatters = {aten.index_copy_.default: 3, aten.index_copy.default: 3,
                 aten.index_put_.default: 2, aten.index_put.default: 2}
     by_op = {}
@@ -3805,84 +3927,125 @@ def _prefill_decode_consistency(label, model, seq, failures):
                         f"against the bf16 forward_train's own {own}")
 
 
-def _dense_serve(failures, model, arch, modes):
-    """The launcher on ``model`` at ``PATHS["dense"]``'s batch, prompt and
-    generation, in each of ``modes`` (shared_prefix); each prefill must
-    launch the sm90 flash kernel once a layer.  Returns the last run."""
+def _lm_serve(failures, model, arch, modes, spec=None, per_prefill=None,
+                 smoke=False, tag="dense"):
+    """The launcher on ``model`` at ``spec``'s (default
+    ``PATHS["dense"]``'s) batch, prompt and generation, in each of
+    ``modes`` (shared_prefix); each prefill must launch the sm90 flash
+    kernel ``per_prefill`` times (default: once a layer) and no other
+    kernel.  Prints the prefill beside its FLOP floor and the decode
+    beside the step's byte floor at the first generated position.
+    Returns the last run."""
     import torch
     from repro_torch.launch.serve import serve
     from repro_torch.serving.runners import launch_counts
-    spec, dev = PATHS["dense"], model.device
-    per_prefill = model.cfg.n_layers
+    spec, dev = spec or PATHS["dense"], model.device
+    per_prefill = model.cfg.n_layers if per_prefill is None else per_prefill
+    P, gen = spec["prompt_len"], spec["gen"]
     for shared in modes:
         before = launch_counts()
         torch.cuda.reset_peak_memory_stats(dev)
-        r = serve(arch, batch=spec["batch"], prompt_len=spec["prompt_len"],
-                  gen=spec["gen"], shared_prefix=shared, device=dev,
-                  model=model)
+        r = serve(arch, smoke=smoke, batch=spec["batch"], prompt_len=P,
+                  gen=gen, shared_prefix=shared, device=dev, model=model)
         n = {k: v - before[k] for k, v in launch_counts().items()
              if v != before[k]}
         rows = 1 if shared else spec["batch"]
-        floor = _prefill_flops(model, rows, spec["prompt_len"]) / (
-            PEAK_FLOPS["bfloat16"])
-        log(f"[e2e:dense] {model.cfg.name} launcher shared_prefix={shared}: "
-            f"prefill_s={r['prefill_s']:.4f} ({rows} x {spec['prompt_len']}"
+        floor = _prefill_flops(model, rows, P) / PEAK_FLOPS["bfloat16"]
+        step_bytes = _decode_floor_bytes(model, spec["batch"], P,
+                                         max_len=P + gen + 8)
+        step_floor = step_bytes / HBM_BYTES_PER_S
+        log(f"[e2e:{tag}] {model.cfg.name} launcher shared_prefix={shared}: "
+            f"prefill_s={r['prefill_s']:.4f} ({rows} x {P}"
             f" tokens, FLOP floor {floor * 1e3:.3f} ms at the bf16 peak) "
             f"capture_s={r['capture_s']:.4f} decode_s={r['decode_s']:.4f} "
-            f"({r['decode_s'] / spec['gen'] * 1e3:.3f} ms a step) "
+            f"({r['decode_s'] / gen * 1e3:.3f} ms a step; the step's byte "
+            f"floor at position {P} {step_bytes / 1e9:.4f} GB = "
+            f"{step_floor * 1e3:.4f} ms, {spec['batch'] / step_floor:.1f} "
+            f"tokens/s at most) "
             f"decode_tok_s={r['decode_tok_s']:.1f} token_steps="
             f"{r['token_steps']} cache_gib={r['cache_bytes'] / 2 ** 30:.3f} "
             f"peak_mem_gib="
             f"{torch.cuda.max_memory_allocated(dev) / 2 ** 30:.3f} "
             f"launches {n}; {_SMI}")
-        want = spec["batch"] * spec["gen"] + (
-            spec["prompt_len"] if shared
-            else spec["batch"] * spec["prompt_len"])
+        want = spec["batch"] * gen + (P if shared else spec["batch"] * P)
+        flash = {k: v for k, v in n.items() if k.startswith("flash")}
         if (n.get("flash_attention/sm90", 0) != per_prefill
-                or n.get("flash_attention") != per_prefill):
-            failures.append(f"e2e dense {model.cfg.name} launcher: "
-                            f"launches {n}, want {per_prefill} sm90 flash "
-                            f"launches a prefill")
+                or n.get("flash_attention", 0) != per_prefill
+                or sum(n.values()) != 2 * per_prefill):
+            failures.append(f"e2e {tag} {model.cfg.name} launcher: "
+                            f"launches {n} (flash {flash}), want "
+                            f"{per_prefill} sm90 flash launches a prefill "
+                            f"and nothing else")
         if (r["token_steps"] != want or r["tokens"].shape
-                != (spec["batch"], spec["gen"])
+                != (spec["batch"], gen)
                 or not torch.isfinite(r["logits"]).all()):
-            failures.append(f"e2e dense {model.cfg.name} launcher: token "
+            failures.append(f"e2e {tag} {model.cfg.name} launcher: token "
                             f"steps {r['token_steps']} (want {want}), tokens "
                             f"{r['tokens'].shape}, or non-finite logits")
     return r
 
 
-def _decode_bytes(failures, model):
-    """One decode step of the launcher's shape at position prompt_len, in
-    place on a copy of a prefilled cache as the decode graph runs it: the
-    bytes its ops move (``_op_bytes``) beside the step's floor
-    (``_decode_floor_bytes``), and the same for the functional step, which
-    writes a whole new cache.  Returns the cache and the next token, for
-    the profiled decode step."""
+def _active_experts(model, fn):
+    """The experts each MoE layer's tokens go to during ``fn()`` (eager):
+    one count a call of the router, in order."""
+    import torch
+    from repro_torch.models import moe as moe_lib
+    router, counts = moe_lib._router, []
+
+    def spy(p, cfg, xt):
+        out = router(p, cfg, xt)
+        counts.append(int(torch.unique(out[2]).numel()))
+        return out
+    moe_lib._router = spy
+    try:
+        fn()
+    finally:
+        moe_lib._router = router
+    return counts
+
+
+def _decode_bytes(failures, model, spec=None, tag="dense"):
+    """One decode step of the launcher's shape (``spec``, default
+    ``PATHS["dense"]``) at position prompt_len, in place on a copy of a
+    prefilled cache as the decode graph runs it: the bytes its ops move
+    (``_op_bytes``) beside the step's floor (``_decode_floor_bytes``; for
+    an MoE model also with only the experts the step's tokens go to), and
+    the same for the functional step, which writes a whole new cache.
+    Returns the cache and the next token, for the profiled decode step."""
     import numpy as np
     import torch
     from repro_torch.models import transformer as tfm
-    spec, dev = PATHS["dense"], model.device
+    spec, dev = spec or PATHS["dense"], model.device
     B, P = spec["batch"], spec["prompt_len"]
+    L = P + spec["gen"] + 8
     prompts = np.random.RandomState(0).randint(0, model.cfg.vocab, (B, P))
-    logits, cache = tfm.prefill(model, prompts, max_len=P + spec["gen"] + 8)
+    logits, cache = tfm.prefill(model, prompts, max_len=L)
     tok = logits.argmax(dim=-1)
     pos = torch.tensor(P, device=dev)
     in_place, by_op = _op_bytes(
         lambda: tfm.decode_step(model, cache, tok, pos, out=cache))
     functional, _ = _op_bytes(lambda: tfm.decode_step(model, cache, tok, P))
-    floor = _decode_floor_bytes(model, B, P)
+    floor = _decode_floor_bytes(model, B, P, max_len=L)
     top = sorted(by_op.items(), key=lambda kv: -kv[1])[:6]
-    log(f"[e2e:dense:decode-bytes] {model.cfg.name} decode step at batch "
-        f"{B}, position {P}, cache of {P + spec['gen'] + 8} rows: the "
+    active = ""
+    if model.cfg.moe is not None:
+        used = _active_experts(model, lambda: tfm.decode_step(model, cache,
+                                                              tok, P))
+        few = _decode_floor_bytes(model, B, P, max_len=L, active=used)
+        active = (f"; with only the experts its {B} tokens go to ({used} "
+                  f"of {model.cfg.moe.n_routed} a layer) the floor is "
+                  f"{few / 1e9:.4f} GB = {few / HBM_BYTES_PER_S * 1e3:.4f} ms"
+                  f" ({B * HBM_BYTES_PER_S / few:.1f} tokens/s at most)")
+    log(f"[e2e:{tag}:decode-bytes] {model.cfg.name} decode step at batch "
+        f"{B}, position {P}, cache of {L} rows: the "
         f"replayed (in-place) step's ops move {in_place / 1e9:.4f} GB, "
         f"the functional step's {functional / 1e9:.4f} GB; the step's floor "
         f"{floor / 1e9:.4f} GB = {floor / HBM_BYTES_PER_S * 1e3:.4f} ms at "
         f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s ({B * HBM_BYTES_PER_S / floor:.1f}"
-        f" tokens/s at most); by op (GB): "
+        f" tokens/s at most){active}; by op (GB): "
         + ", ".join(f"{k} {v / 1e9:.4f}" for k, v in top) + f"; {_SMI}")
     if not floor <= in_place < functional:
-        failures.append(f"dense decode bytes: in place {in_place}, "
+        failures.append(f"{tag} decode bytes: in place {in_place}, "
                         f"functional {functional}, floor {floor}")
     return cache, tok
 
@@ -3992,7 +4155,7 @@ def phase_dense(failures):
     gc.collect()
     torch.cuda.empty_cache()
     held = torch.cuda.memory_allocated(dev)
-    model = _dense_model(spec["arch"], dev, seed=0)
+    model = _lm_model(spec["arch"], dev, seed=0)
     cfg = model.cfg
     _cast_check("phi3-mini-3.8b prefill 1 x 256", model._cast,
                 lambda: tfm.prefill(model, np.arange(256)[None])[0],
@@ -4000,7 +4163,7 @@ def phase_dense(failures):
     counters = _counters()
     _reset_counts(counters)
     torch.cuda.synchronize()
-    _dense_serve(failures, model, spec["arch"], (False, True))
+    _lm_serve(failures, model, spec["arch"], (False, True))
 
     torch.cuda.reset_peak_memory_stats(dev)
     before = launch_counts()["flash_attention/sm90"]
@@ -4087,28 +4250,14 @@ def phase_dense(failures):
     _prefill_decode_consistency(f"{cfg.name}", model, spec["prompt_len"],
                                 failures)
 
-    prompts = np.random.RandomState(0).randint(
-        0, cfg.vocab, (spec["batch"], spec["prompt_len"]))
-    _reset_counts(counters)
-    rows = _profile(f"dense prefill {spec['batch']}x{spec['prompt_len']}",
-                    lambda: tfm.prefill(model, prompts, max_len=max_len),
-                    ("flash_sm90_kernel",))
-    _trace_check("dense prefill", rows, _summed(*_ran()), failures)
-    decode = DecodeRunner(model)
-    decode.capture(cache, tok)
-    pos = spec["prompt_len"]
-    _, cset = decode(cache, tok, pos)
-    _reset_counts(counters)
-    label = f"dense decode step x{spec['batch']}, replayed"
-    rows = _profile(label, lambda: decode(cset, tok, pos + 1))
-    _trace_check(label, rows, _summed(*_ran()), failures)
-    del model, cache, cset, decode
+    _profiles(failures, model, spec, cache, tok, "dense")
+    del model, cache
     gc.collect()
     torch.cuda.empty_cache()
 
-    qwen = _dense_model(DENSE_QWEN, dev, seed=1, n_layers=DENSE_QWEN_LAYERS)
+    qwen = _lm_model(DENSE_QWEN, dev, seed=1, n_layers=DENSE_QWEN_LAYERS)
     _reset_counts(counters)
-    _dense_serve(failures, qwen, DENSE_QWEN, (True,))
+    _lm_serve(failures, qwen, DENSE_QWEN, (True,))
     q_launches = _ran()
     _check_path_kernels("dense:qwen3", _summed(*q_launches), failures)
     _prefill_decode_consistency(f"{qwen.cfg.name} (depth {qwen.cfg.n_layers})",
@@ -4119,6 +4268,193 @@ def phase_dense(failures):
     _dense_example(failures)
     return {"dense": (wrappers, replayed), "dense:cache": cached,
             "dense:qwen3": q_launches}
+
+
+# the MoE consistency check runs at this capacity factor, as the JAX arch
+# test does (tests/test_arch_smoke.py): nothing is dropped in either the
+# forward over the whole sequence or the prefill and decode
+MOE_CONSISTENCY_CF = 8.0
+
+
+def _hybrid(failures, dev):
+    """recurrentgemma-2b at full width and depth (``PATHS["hybrid"]``).
+    Returns the paths' launches."""
+    import numpy as np
+    import torch
+    from repro_torch.config import MIX_LOCAL_ATTN
+    from repro_torch.models import transformer as tfm
+    spec = PATHS["hybrid"]
+    model = _lm_model(spec["arch"], dev, seed=0, tag="hybrid")
+    cfg = model.cfg
+    n_local = sum(lay.kind == MIX_LOCAL_ATTN for lay in _lm_layers(model))
+    _cast_check(f"{cfg.name} prefill 1 x 256", model._cast,
+                lambda: tfm.prefill(model, np.arange(256)[None])[0],
+                failures)
+    counters = _counters()
+    _reset_counts(counters)
+    torch.cuda.synchronize()
+    _lm_serve(failures, model, spec["arch"], (False, True), spec=spec,
+                 per_prefill=n_local, tag="hybrid")
+    _lm_serve(failures, model, spec["arch"], (False,),
+                 spec=dict(spec, prompt_len=spec["long_prompt"]),
+                 per_prefill=n_local, tag="hybrid")
+    wrappers, replayed = _ran()
+    _check_path_kernels("hybrid", _summed(wrappers, replayed), failures)
+    if any(replayed.values()):
+        failures.append(f"e2e hybrid: the decode graphs hold kernels of the "
+                        f"port's: {replayed}")
+    out = {"hybrid": (wrappers, replayed)}
+
+    # the decode graph across the ring's wrap: slots P..window-1, then 0..
+    P = spec["wrap_prompt"]
+    rows = _graph_check(failures, model, spec, P, "hybrid",
+                        f"across the {cfg.window}-row ring's wrap")
+    if set(rows.values()) != {cfg.window}:
+        failures.append(f"e2e hybrid: local caches of {rows} rows at "
+                        f"max_len {P + spec['gen'] + 8}, want {cfg.window}")
+
+    prefix, tail = spec["prompt_len"], spec["tail"]
+    groups = list(_group_tokens(np.random.RandomState(0), cfg.vocab,
+                                spec["groups"], spec["members"], prefix,
+                                tail))
+    max_len = prefix + tail + spec["gen"] + 8
+    out["hybrid:cache"] = _cached_prefix(
+        failures, model, groups, max_len, "hybrid", "flash_attention/sm90",
+        per_prefill=n_local)
+    cache, tok = _decode_bytes(failures, model, spec, "hybrid")
+    _prefill_decode_consistency(cfg.name, model, spec["prompt_len"],
+                                failures)
+    _profiles(failures, model, spec, cache, tok, "hybrid")
+    return out
+
+
+def _graph_check(failures, model, spec, P, tag, what):
+    """The decode graph against eager ``decode_step`` over ``spec["gen"]``
+    steps from a prefill of ``spec["batch"]`` x ``P`` tokens
+    (``_replay_vs_eager``), with both rates.  Returns the rows of the
+    prefill's attention caches, by layer of the block."""
+    import numpy as np
+    import torch
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serving.runners import DecodeRunner
+    B, gen = spec["batch"], spec["gen"]
+    prompts = np.random.RandomState(1).randint(0, model.cfg.vocab, (B, P))
+    logits, cache = tfm.prefill(model, prompts, max_len=P + gen + 8)
+    rows = {name: (c["k"] if "k" in c else c["ckv"]).shape[2]
+            for name, c in cache["blocks"].items() if {"k", "ckv"} & set(c)}
+    decode = DecodeRunner(model)
+    replay_s, eager_s = _replay_vs_eager(
+        f"{tag} (attention caches {rows} rows) {what}", model, decode,
+        cache, logits.argmax(dim=-1), P, gen, failures)
+    log(f"[e2e:{tag}] decode {what}, batch {B}: replayed "
+        f"{B * gen / replay_s:.1f} tok/s ({replay_s / gen * 1e3:.3f} ms a "
+        f"step, capture_s={decode.capture_s:.4f}), eager "
+        f"{B * gen / eager_s:.1f} tok/s ({eager_s / gen * 1e3:.3f} ms); "
+        f"{_SMI}")
+    del cache, decode, logits
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _profiles(failures, model, spec, cache, tok, tag):
+    """One traced prefill at the launcher's shape and one traced replayed
+    decode step from ``cache``, each trace held to the counts."""
+    import numpy as np
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serving.runners import DecodeRunner
+    B, P = spec["batch"], spec["prompt_len"]
+    prompts = np.random.RandomState(0).randint(0, model.cfg.vocab, (B, P))
+    counters = _counters()
+    _reset_counts(counters)
+    rows = _profile(f"{tag} prefill {B}x{P}",
+                    lambda: tfm.prefill(model, prompts,
+                                        max_len=P + spec["gen"] + 8),
+                    ("flash_sm90_kernel",))
+    _trace_check(f"{tag} prefill", rows, _summed(*_ran()), failures)
+    decode = DecodeRunner(model)
+    decode.capture(cache, tok)
+    _, cset = decode(cache, tok, P)
+    _reset_counts(counters)
+    label = f"{tag} decode step x{B}, replayed"
+    rows = _profile(label, lambda: decode(cset, tok, P + 1))
+    _trace_check(label, rows, _summed(*_ran()), failures)
+
+
+def _moe(failures, dev):
+    """deepseek-v2-lite-16b at full width, its depth cut to
+    ``PATHS["moe"]["n_layers"]``, then kimi-k2 at smoke size.  Returns the
+    paths' launches."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.config import replace
+    from repro_torch.models import transformer as tfm
+    spec = PATHS["moe"]
+    model = _lm_model(spec["arch"], dev, seed=1, tag="moe",
+                         n_layers=spec["n_layers"])
+    cfg = model.cfg
+    _cast_check(f"{cfg.name} prefill 1 x 256", model._cast,
+                lambda: tfm.prefill(model, np.arange(256)[None])[0],
+                failures)
+    counters = _counters()
+    _reset_counts(counters)
+    torch.cuda.synchronize()
+    _lm_serve(failures, model, spec["arch"], (False, True), spec=spec,
+                 per_prefill=0, tag="moe")
+    wrappers, replayed = _ran()
+    _check_path_kernels("moe", _summed(wrappers, replayed), failures)
+    out = {"moe": (wrappers, replayed)}
+
+    P, gen = spec["prompt_len"], spec["gen"]
+    _graph_check(failures, model, spec, P, "moe", "on MLA's latent cache")
+
+    prefix, tail = spec["prompt_len"], spec["tail"]
+    groups = list(_group_tokens(np.random.RandomState(0), cfg.vocab,
+                                spec["groups"], spec["members"], prefix,
+                                tail))
+    out["moe:cache"] = _cached_prefix(
+        failures, model, groups, prefix + tail + gen + 8, "moe",
+        "flash_attention/sm90", per_prefill=0)
+    cache, tok = _decode_bytes(failures, model, spec, "moe")
+    moe = cfg.moe
+    model.cfg = replace(cfg, moe=dataclasses.replace(
+        moe, capacity_factor=MOE_CONSISTENCY_CF))
+    _prefill_decode_consistency(
+        f"{cfg.name} (depth {cfg.n_layers}, capacity_factor "
+        f"{MOE_CONSISTENCY_CF})", model, P, failures)
+    model.cfg = cfg
+    _profiles(failures, model, spec, cache, tok, "moe")
+    del model, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    spec = PATHS["moe:kimi"]
+    kimi = _lm_model(spec["arch"], dev, seed=2, smoke=True,
+                        tag="moe:kimi")
+    _reset_counts(counters)
+    _lm_serve(failures, kimi, spec["arch"], (True,), spec=spec,
+                 smoke=True, tag="moe:kimi")
+    out["moe:kimi"] = _ran()
+    _check_path_kernels("moe:kimi", _summed(*out["moe:kimi"]), failures)
+    return out
+
+
+def phase_hybrid_moe(failures):
+    """The hybrid and MoE LM paths (``_hybrid``, ``_moe``): random weights
+    from a seed, bf16 activations, flash on the kernel route.  Launch counts
+    are set to 0 just before each path's runs and read just after.
+    Returns the paths' launch counts."""
+    import torch
+    dev = torch.device("cuda:0")
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[e2e:hybrid_moe] allocated before the phase "
+        f"{torch.cuda.memory_allocated(dev) / 2 ** 30:.3f} GiB")
+    out = _hybrid(failures, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out.update(_moe(failures, dev))
+    return out
 
 
 def phase_reference(failures):
@@ -4766,6 +5102,10 @@ def main(argv) -> int:
     launches.update(phase_dense(failures))
     gc.collect()
     torch.cuda.empty_cache()
+    t5h = time.perf_counter()
+    launches.update(phase_hybrid_moe(failures))
+    gc.collect()
+    torch.cuda.empty_cache()
     t5t = time.perf_counter()
     phase_train(failures)
     gc.collect()
@@ -4780,7 +5120,7 @@ def main(argv) -> int:
     log(f"[time] build {t1 - t0:.1f} s, kernels {t2 - t1:.1f} s, "
         f"e2e DiT {t3 - t2:.1f} s, stream {t4 - t3:.1f} s, example "
         f"{t4e - t4:.1f} s, e2e mamba2 {t5d - t4e:.1f} s, e2e dense "
-        f"{t5t - t5d:.1f} s, train "
+        f"{t5h - t5d:.1f} s, e2e hybrid_moe {t5t - t5h:.1f} s, train "
         f"{t5 - t5t:.1f} s, reference "
         f"{t6 - t5:.1f} s, graph nodes {t7 - t6:.1f} s")
     if failures:

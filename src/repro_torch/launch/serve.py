@@ -8,9 +8,12 @@ shared-prefix mode (one trunk prefill, forked to the batch).
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch phi3-mini-3.8b --smoke --device cpu
 
-Any ported family serves: ``mamba2-780m`` (SSM states) and the dense
+Any ported family serves: ``mamba2-780m`` (SSM states), the dense
 configs (``phi3-mini-3.8b``, ``qwen3-32b``, ``qwen1.5-32b``,
-``granite-20b``: KV caches of ``prompt_len + gen + 8`` rows).
+``granite-20b``: KV caches of ``prompt_len + gen + 8`` rows), the hybrid
+``recurrentgemma-2b`` (RG-LRU states and local-attention rings of
+``min(window, prompt_len + gen + 8)`` rows) and the MoE configs
+``deepseek-v2-lite-16b`` (MLA latent caches) and ``kimi-k2-1t-a32b``.
 
 The device defaults to CUDA and raises without a GPU.  The weights are
 random, drawn from seed 0, and cast to the activation dtype once; the

@@ -2,8 +2,8 @@
 cross-attention): the full-sequence paths and the KV-cache serving path.
 Parameters live in an ``nn.ParameterDict`` named as in the JAX package
 (``wq``, ``wk``, ``wv``, ``wo``, optional ``bq``/``bk``/``bv`` and
-``q_norm``/``k_norm``), so the weight bridge maps them by name.  MLA comes
-with the MoE family.
+``q_norm``/``k_norm``), so the weight bridge maps them by name; so do
+MLA's (``wq``, ``wdkv``, ``kv_norm``, ``wukv``, ``wo``).
 
 Cache layout (the JAX package's): ``{"k": (B, L, Hkv, hd), "v": (B, L,
 Hkv, hd)}`` with L = max_len, or L = window with ring addressing (slot =
@@ -11,6 +11,12 @@ pos % window).  RoPE is applied before caching, so slot order does not
 enter the attention.  A decode step's ``pos`` may be a 0-dim device
 tensor: the row it writes and the keys it attends to are computed from it
 on the device, so one captured graph serves every position.
+
+MLA (DeepSeek multi-head latent attention) caches the compressed latent
+instead: ``{"ckv": (B, L, kv_lora_rank), "kr": (B, L, qk_rope_head_dim)}``
+(the RoPE'd shared key part), and up-projects K and V from it at every
+step.  Its query/key width (nope + rope) differs from its value width, so
+it attends through plain :func:`attend`, as the JAX package does.
 """
 from __future__ import annotations
 
@@ -23,7 +29,7 @@ from torch import nn
 from repro_torch.config import ModelConfig
 from repro_torch.kernels import dispatch
 from repro_torch.models.layers import (apply_rope, attend, cast,
-                                      dense_init, dot, rms_norm)
+                                      causal_mask, dense_init, dot, rms_norm)
 
 Cache = Dict[str, torch.Tensor]
 
@@ -192,3 +198,118 @@ def gqa_cross_decode(p: Mapping[str, torch.Tensor], cfg: ModelConfig,
         q = rms_norm(q, p["q_norm"], cfg.rms_eps)
     o = attend(q, kv["k"], kv["v"], None, 1.0 / math.sqrt(cfg.hd))
     return dot(o.reshape(B, S, -1), p["wo"])
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek multi-head latent attention)
+# ---------------------------------------------------------------------------
+
+def init_mla(cfg: ModelConfig, *, device, generator) -> nn.ParameterDict:
+    m = cfg.mla
+    d, H = cfg.d_model, cfg.n_heads
+    qd = m.qk_nope_head_dim + m.qk_rope_head_dim
+    kw = dict(device=device, generator=generator)
+    p = {
+        "wq": dense_init(d, H * qd, **kw),
+        "wdkv": dense_init(d, m.kv_lora_rank + m.qk_rope_head_dim, **kw),
+        "kv_norm": torch.zeros(m.kv_lora_rank, device=device),
+        "wukv": dense_init(m.kv_lora_rank,
+                           H * (m.qk_nope_head_dim + m.v_head_dim), **kw),
+        "wo": dense_init(H * m.v_head_dim, d, **kw),
+    }
+    return nn.ParameterDict({k: nn.Parameter(v) for k, v in p.items()})
+
+
+def _mla_q(p, cfg: ModelConfig, x: torch.Tensor, pos) -> torch.Tensor:
+    m = cfg.mla
+    B, S, _ = x.shape
+    qd = m.qk_nope_head_dim + m.qk_rope_head_dim
+    q = dot(x, p["wq"]).reshape(B, S, cfg.n_heads, qd)
+    q_nope, q_rope = q.split([m.qk_nope_head_dim, m.qk_rope_head_dim], -1)
+    q_rope = apply_rope(q_rope, pos, cfg.rope_theta)
+    return torch.cat([q_nope, q_rope], dim=-1)
+
+
+def _mla_ckv(p, cfg: ModelConfig, x: torch.Tensor, pos
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    m = cfg.mla
+    dkv = dot(x, p["wdkv"])
+    ckv, kr = dkv.split([m.kv_lora_rank, m.qk_rope_head_dim], -1)
+    ckv = rms_norm(ckv, p["kv_norm"], cfg.rms_eps)
+    kr = apply_rope(kr[:, :, None, :], pos, cfg.rope_theta)[:, :, 0, :]
+    return ckv, kr
+
+
+def _mla_attend(p, cfg: ModelConfig, q: torch.Tensor, ckv: torch.Tensor,
+                kr: torch.Tensor, mask: Optional[torch.Tensor]
+                ) -> torch.Tensor:
+    """q (B,Sq,H,nope+rope); ckv (B,Sk,r); kr (B,Sk,rope)."""
+    m = cfg.mla
+    B, Sk, _ = ckv.shape
+    H = cfg.n_heads
+    up = dot(ckv, p["wukv"]).reshape(B, Sk, H,
+                                     m.qk_nope_head_dim + m.v_head_dim)
+    k_nope, v = up.split([m.qk_nope_head_dim, m.v_head_dim], -1)
+    k = torch.cat([k_nope, kr[:, :, None, :].expand(
+        B, Sk, H, m.qk_rope_head_dim)], dim=-1)
+    scale = 1.0 / math.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim)
+    out = attend(q, k, v, mask, scale)
+    return dot(out.reshape(B, q.shape[1], -1), p["wo"])
+
+
+def mla_full(p, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    S = x.shape[1]
+    pos = torch.arange(S, device=x.device)
+    q = _mla_q(p, cfg, x, pos)
+    ckv, kr = _mla_ckv(p, cfg, x, pos)
+    return _mla_attend(p, cfg, q, ckv, kr,
+                       causal_mask(S, S, device=x.device))
+
+
+def mla_cache_init(cfg: ModelConfig, batch: int, max_len: int, dtype,
+                   device) -> Cache:
+    m = cfg.mla
+    return {"ckv": torch.zeros((batch, max_len, m.kv_lora_rank),
+                               dtype=dtype, device=device),
+            "kr": torch.zeros((batch, max_len, m.qk_rope_head_dim),
+                              dtype=dtype, device=device)}
+
+
+def mla_prefill(p, cfg: ModelConfig, x: torch.Tensor, *, max_len: int
+                ) -> Tuple[torch.Tensor, Cache]:
+    """Causal MLA over the prompt; returns output + the latent cache with
+    the prompt's rows at slots 0..S-1."""
+    B, S, _ = x.shape
+    if S > max_len:
+        raise ValueError(f"a {S}-token prompt does not fit a cache of "
+                         f"{max_len} rows")
+    pos = torch.arange(S, device=x.device)
+    q = _mla_q(p, cfg, x, pos)
+    ckv, kr = _mla_ckv(p, cfg, x, pos)
+    out = _mla_attend(p, cfg, q, ckv, kr,
+                      causal_mask(S, S, device=x.device))
+    cache = mla_cache_init(cfg, B, max_len, ckv.dtype, x.device)
+    cache["ckv"][:, :S] = ckv
+    cache["kr"][:, :S] = kr
+    return out, cache
+
+
+def mla_decode(p, cfg: ModelConfig, x: torch.Tensor, cache: Cache, pos, *,
+               out: Optional[Cache] = None) -> Tuple[torch.Tensor, Cache]:
+    """One-token decode.  x (B,1,D); ``pos`` an int or a 0-dim integer
+    tensor.  The new cache is ``cache`` with the latent row at ``pos``
+    replaced (at the last row for a position past the cache, where JAX's
+    ``dynamic_update_slice`` clamps it), written into ``out``'s tensors
+    when given (``out`` may be ``cache`` itself), else into new ones."""
+    pos = torch.as_tensor(pos, dtype=torch.long, device=x.device)
+    q = _mla_q(p, cfg, x, pos)
+    ckv, kr = _mla_ckv(p, cfg, x, pos)
+    L = cache["ckv"].shape[1]
+    slot = pos.clamp(0, L - 1).reshape(1)
+    cc = _into(None if out is None else out["ckv"], cache["ckv"])
+    ck = _into(None if out is None else out["kr"], cache["kr"])
+    cc.index_copy_(1, slot, ckv.to(cc.dtype))
+    ck.index_copy_(1, slot, kr.to(ck.dtype))
+    valid = (torch.arange(L, device=x.device) <= pos)[None, None, None,
+                                                      None, :]
+    return _mla_attend(p, cfg, q, cc, ck, valid), {"ckv": cc, "kr": ck}

@@ -17,8 +17,11 @@ prefill(model, tokens, max_len=, window=)           -> (last_logits, cache)
 decode_step(model, cache, token, pos, ring=, out=)  -> (logits, cache)
 
 Ported: the ``dense`` family (GQA ``attn`` layers with a dense SwiGLU or
-GELU MLP) and ``ssm`` layers (mamba2), each with MLP kind ``dense`` or
-``none``.  The other families raise ``NotImplementedError``.
+GELU MLP), ``ssm`` layers (mamba2), the ``hybrid`` (RG-LRU and local
+attention super-blocks with an unrolled remainder: recurrentgemma) and
+``moe`` (a prefix of dense layers, then layers with a routed MLP; GQA or
+MLA attention: deepseek-v2-lite, kimi-k2).  The VLM and encdec families
+raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -29,24 +32,31 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
-from repro_torch.config import MIX_ATTN, MIX_SSM, ModelConfig
+from repro_torch.config import (MIX_ATTN, MIX_LOCAL_ATTN, MIX_RGLRU,
+                                MIX_SSM, ModelConfig)
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_lib
+from repro_torch.models import rglru as rglru_lib
 from repro_torch.models.layers import (apply_mlp, cast, cast_weights_, dot,
                                       init_mlp, named_casts, rms_norm)
 from repro_torch.models.ssm import Mamba2Mixer
 
 Cache = Dict[str, Any]
 #: the parameters the LM reads in its activation dtype: the embedding (the
-#: tied head) and head, the attention and MLP matrices and biases, the SSM
-#: projections (the norms, the conv and the SSM's dt/A run in f32)
+#: tied head) and head, the attention (GQA and MLA) and MLP matrices and
+#: biases (the MoE experts' stacked ones too), the SSM and RG-LRU
+#: projections (the norms, the convs, the SSM's dt/A, the RG-LRU's gate
+#: biases and Lambda, and the router run in f32)
 CAST = ("embed", "head", "wq", "wk", "wv", "wo", "bq", "bk", "bv", "wi",
-        "wg", "z_proj", "x_proj", "bc_proj", "dt_proj", "out_proj", "D")
+        "wg", "z_proj", "x_proj", "bc_proj", "dt_proj", "out_proj", "D",
+        "wdkv", "wukv", "wx", "wa", "out")
 
 _NOT_PORTED = ("not ported yet: ROADMAP.md §1, item 4 (the rest of the "
-               "LLM substrate, in order: the hybrid's RG-LRU and local "
-               "attention, MoE with MLA, the VLM's cross-attention, "
+               "LLM substrate, in order: the VLM's cross-attention, "
                "encdec)")
-_PORTED_FAMILIES = ("dense", "ssm")
+_PORTED_FAMILIES = ("dense", "ssm", "hybrid", "moe")
+#: the mixers that keep an attention cache (GQA or MLA)
+_ATTN_MIXERS = (MIX_ATTN, MIX_LOCAL_ATTN)
 
 
 def plan(cfg: ModelConfig) -> Tuple[Tuple[str, ...], Tuple[str, ...], int,
@@ -56,94 +66,147 @@ def plan(cfg: ModelConfig) -> Tuple[Tuple[str, ...], Tuple[str, ...], int,
     every other family raises here."""
     if cfg.family not in _PORTED_FAMILIES:
         raise NotImplementedError(f"family {cfg.family!r} {_NOT_PORTED}")
+    kinds = cfg.layer_kinds()
+    if cfg.family == "moe":
+        f = cfg.moe.first_moe_layer
+        return kinds[:f], (MIX_ATTN,), cfg.n_layers - f, ()
     if cfg.pattern:
         n_blocks = (cfg.n_layers - len(cfg.remainder)) // len(cfg.pattern)
         return (), tuple(cfg.pattern), n_blocks, tuple(cfg.remainder)
     return (), (MIX_ATTN,), cfg.n_layers, ()
 
 
-def _mlp_kind(cfg: ModelConfig) -> str:
-    """'dense' | 'none' for a layer (the JAX ``_mlp_kind`` without MoE)."""
-    if cfg.moe is not None:
-        raise NotImplementedError(f"MoE MLPs {_NOT_PORTED}")
-    return "none" if cfg.d_ff == 0 else "dense"
+def _mlp_kind(cfg: ModelConfig, in_scan: bool) -> str:
+    """'moe' | 'dense' | 'none' for a layer position (in the scanned
+    blocks or not)."""
+    if cfg.d_ff == 0 and cfg.moe is None:
+        return "none"
+    if cfg.moe is not None and in_scan:
+        return "moe"
+    return "dense"
 
 
 def uses_pos(cfg: ModelConfig) -> bool:
-    """Whether a decode step reads its position (attention caches do)."""
-    return MIX_ATTN in plan(cfg)[1]
+    """Whether a decode step reads its position: any layer that keeps an
+    attention cache does (GQA, local or MLA)."""
+    prefix, block, _, suffix = plan(cfg)
+    return any(k in _ATTN_MIXERS for k in prefix + block + suffix)
 
 
 class Layer(nn.Module):
     """One residual layer (``init_layer``): ``ln1`` and its mixer
-    (``mix``), then ``ln2`` and a dense ``mlp`` unless the MLP kind is
-    ``none``."""
+    (``mix``: GQA or MLA attention, the SSM, the RG-LRU), then ``ln2`` and
+    a dense ``mlp`` or a routed ``moe`` unless the MLP kind is ``none``."""
 
-    def __init__(self, cfg: ModelConfig, kind: str, *, device, generator):
+    def __init__(self, cfg: ModelConfig, kind: str, mlpk: str, *, device,
+                 generator):
         super().__init__()
         d = cfg.d_model
-        self.kind, self.mlpk = kind, _mlp_kind(cfg)
+        kw = dict(device=device, generator=generator)
+        self.kind, self.mlpk = kind, mlpk
         self.ln1 = nn.Parameter(torch.zeros(d, device=device))
-        if kind == MIX_ATTN:
-            self.mix = attn.init_gqa(cfg, device=device, generator=generator)
+        if kind in _ATTN_MIXERS:
+            self.mix = (attn.init_mla(cfg, **kw) if cfg.attn_kind == "mla"
+                        else attn.init_gqa(cfg, **kw))
         elif kind == MIX_SSM:
-            self.mix = Mamba2Mixer(cfg, device=device, generator=generator)
+            self.mix = Mamba2Mixer(cfg, **kw)
+        elif kind == MIX_RGLRU:
+            self.mix = rglru_lib.init_rglru(cfg, **kw)
         else:
             raise NotImplementedError(f"mixer {kind!r} {_NOT_PORTED}")
-        if self.mlpk == "dense":
+        if mlpk == "dense":
+            ff = (cfg.moe.d_ff_dense if (cfg.moe and cfg.moe.d_ff_dense)
+                  else cfg.d_ff)
             self.ln2 = nn.Parameter(torch.zeros(d, device=device))
             self.mlp = nn.ParameterDict({
                 k: nn.Parameter(v) for k, v in init_mlp(
-                    d, cfg.d_ff, cfg.mlp_kind, device=device,
-                    generator=generator).items()})
+                    d, ff, cfg.mlp_kind, **kw).items()})
+        elif mlpk == "moe":
+            self.ln2 = nn.Parameter(torch.zeros(d, device=device))
+            self.moe = moe_lib.init_moe(cfg, **kw)
 
     def init_cache(self, cfg: ModelConfig, batch: int, max_len: int, dtype,
                    window: int = 0) -> Cache:
         """``init_layer_cache``: this layer's zero cache."""
+        dev = self.ln1.device
         if self.kind == MIX_ATTN:
+            if cfg.attn_kind == "mla":
+                return attn.mla_cache_init(cfg, batch, window or max_len,
+                                           dtype, dev)
             return attn.gqa_cache_init(cfg, batch, window or max_len, dtype,
-                                       self.ln1.device)
+                                       dev)
+        if self.kind == MIX_LOCAL_ATTN:
+            return attn.gqa_cache_init(cfg, batch, min(cfg.window, max_len),
+                                       dtype, dev)
+        if self.kind == MIX_RGLRU:
+            return rglru_lib.rglru_cache_init(cfg, batch, dtype, dev)
         return self.mix.ssm_cache_init(batch, dtype)
 
 
 def apply_layer(layer: Layer, cfg: ModelConfig, x: torch.Tensor, *,
                 mode: str, cache=None, pos=None, window: int = 0,
                 ring: bool = False, max_len: int = 0,
-                out=None) -> Tuple[torch.Tensor, Any]:
-    """``mode`` "train" | "prefill" | "decode" -> (x, new_cache), the new
-    cache None in train.  In decode, ``out`` (optional) holds the tensors
-    the new cache is written into."""
+                out=None) -> Tuple[torch.Tensor, Any, Optional[torch.Tensor]]:
+    """``mode`` "train" | "prefill" | "decode" -> (x, new_cache, aux), the
+    new cache None in train, aux the router's load-balance loss of an MoE
+    layer (None for the others).  A local-attention layer attends within
+    ``cfg.window`` whatever the call's ``window``, and its decode is always
+    a ring.  In decode, ``out`` (optional) holds the tensors the new cache
+    is written into."""
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(f"unknown mode {mode!r}")
     h = rms_norm(x, layer.ln1, cfg.rms_eps)
-    new_cache = None
-    if layer.kind == MIX_ATTN:
+    new_cache = aux = None
+    if layer.kind in _ATTN_MIXERS:
+        w = cfg.window if layer.kind == MIX_LOCAL_ATTN else window
+        mla = cfg.attn_kind == "mla"
         if mode == "train":
-            a = attn.gqa_full(layer.mix, cfg, h, window=window)
+            a = (attn.mla_full(layer.mix, cfg, h) if mla
+                 else attn.gqa_full(layer.mix, cfg, h, window=w))
         elif mode == "prefill":
-            L = min(window, max_len) if window else max_len
-            a, new_cache = attn.gqa_prefill(layer.mix, cfg, h, max_len=L,
-                                            window=window)
-        elif mode == "decode":
+            if mla:
+                a, new_cache = attn.mla_prefill(layer.mix, cfg, h,
+                                                max_len=max_len)
+            else:
+                L = min(w, max_len) if w else max_len
+                a, new_cache = attn.gqa_prefill(layer.mix, cfg, h, max_len=L,
+                                                window=w)
+        else:
             if pos is None:
                 raise ValueError("an attention layer's decode step needs "
                                  "its position")
-            a, new_cache = attn.gqa_decode(layer.mix, cfg, h, cache, pos,
-                                           ring=ring, out=out)
+            if mla:
+                a, new_cache = attn.mla_decode(layer.mix, cfg, h, cache, pos,
+                                               out=out)
+            else:
+                a, new_cache = attn.gqa_decode(
+                    layer.mix, cfg, h, cache, pos,
+                    ring=ring or layer.kind == MIX_LOCAL_ATTN, out=out)
+    elif layer.kind == MIX_RGLRU:
+        if mode == "train":
+            a = rglru_lib.rglru_full(layer.mix, cfg, h)
+        elif mode == "prefill":
+            a, new_cache = rglru_lib.rglru_full(layer.mix, cfg, h,
+                                                return_cache=True)
         else:
-            raise ValueError(f"unknown mode {mode!r}")
+            a, new_cache = rglru_lib.rglru_decode(layer.mix, cfg, h, cache,
+                                                  out=out)
     else:
         if mode == "train":
             a = layer.mix.ssm_full(h)
         elif mode == "prefill":
             a, new_cache = layer.mix.ssm_full(h, return_cache=True)
-        elif mode == "decode":
-            a, new_cache = layer.mix.ssm_decode(h, cache, out=out)
         else:
-            raise ValueError(f"unknown mode {mode!r}")
+            a, new_cache = layer.mix.ssm_decode(h, cache, out=out)
     x = x + a
     if layer.mlpk == "dense":
         x = x + apply_mlp(layer.mlp, rms_norm(x, layer.ln2, cfg.rms_eps),
                           cfg.mlp_kind)
-    return x, new_cache
+    elif layer.mlpk == "moe":
+        y, aux = moe_lib.apply_moe(layer.moe, cfg,
+                                   rms_norm(x, layer.ln2, cfg.rms_eps))
+        x = x + y
+    return x, new_cache, aux
 
 
 class LM(nn.Module):
@@ -168,14 +231,15 @@ class LM(nn.Module):
         if not cfg.tie_embeddings:
             self.head = nn.Parameter(torch.randn((d, cfg.vocab), **kw)
                                      / d ** 0.5)
+        outer, inner = _mlp_kind(cfg, False), _mlp_kind(cfg, True)
         self.prefix = nn.ModuleList(
-            Layer(cfg, k, **kw) for k in prefix)
+            Layer(cfg, k, outer, **kw) for k in prefix)
         self.blocks = nn.ModuleList(
-            nn.ModuleDict({f"l{j}": Layer(cfg, k, **kw)
+            nn.ModuleDict({f"l{j}": Layer(cfg, k, inner, **kw)
                            for j, k in enumerate(block)})
             for _ in range(n_blocks))
         self.suffix = nn.ModuleList(
-            Layer(cfg, k, **kw) for k in suffix)
+            Layer(cfg, k, outer, **kw) for k in suffix)
         # the weights cast_weights_ casts, found once
         self._cast = tuple(named_casts(self, CAST))
 
@@ -225,29 +289,39 @@ def _unbind(tree: Any, n: int) -> List[Any]:
 
 
 def _block(bm: nn.ModuleDict, cfg: ModelConfig,
-           x: torch.Tensor) -> torch.Tensor:
+           x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    aux = torch.zeros((), device=x.device)
     for layer in bm.values():
-        x, _ = apply_layer(layer, cfg, x, mode="train")
-    return x
+        x, _, a = apply_layer(layer, cfg, x, mode="train")
+        if a is not None:
+            aux = aux + a
+    return x, aux
 
 
 def forward_train(model: LM, tokens, remat: bool = False
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens (B,S) -> (logits (B,S,V), aux).  Differentiable; ``remat``
     recomputes each scanned block in the backward (``jax.checkpoint`` of
-    the scan body).  ``aux`` is 0: no ported MLP has a router."""
+    the scan body).  ``aux`` is the sum of the MoE layers' router
+    load-balance losses (0 without MoE layers)."""
     cfg = model.cfg
     x = model.embed_tokens(tokens)
+    aux = torch.zeros((), device=x.device)
     for layer in model.prefix:
-        x, _ = apply_layer(layer, cfg, x, mode="train")
+        x, _, a = apply_layer(layer, cfg, x, mode="train")
+        if a is not None:
+            aux = aux + a
     for bm in model.blocks:
         if remat and torch.is_grad_enabled():
-            x = checkpoint(_block, bm, cfg, x, use_reentrant=False)
+            x, a = checkpoint(_block, bm, cfg, x, use_reentrant=False)
         else:
-            x = _block(bm, cfg, x)
+            x, a = _block(bm, cfg, x)
+        aux = aux + a
     for layer in model.suffix:
-        x, _ = apply_layer(layer, cfg, x, mode="train")
-    return model.logits(x), torch.zeros((), device=x.device)
+        x, _, a = apply_layer(layer, cfg, x, mode="train")
+        if a is not None:
+            aux = aux + a
+    return model.logits(x), aux
 
 
 def lm_loss(model: LM, batch: Dict[str, Any], remat: bool = False
@@ -294,17 +368,17 @@ def prefill(model: LM, tokens, max_len: int = 0, window: int = 0
     kw = dict(mode="prefill", max_len=max_len, window=window)
     caches: Cache = {"prefix": [], "suffix": []}
     for layer in model.prefix:
-        x, c = apply_layer(layer, cfg, x, **kw)
+        x, c, _ = apply_layer(layer, cfg, x, **kw)
         caches["prefix"].append(c)
     blk: List[Dict[str, Any]] = []
     for bm in model.blocks:
         cs = {}
         for name, layer in bm.items():
-            x, cs[name] = apply_layer(layer, cfg, x, **kw)
+            x, cs[name], _ = apply_layer(layer, cfg, x, **kw)
         blk.append(cs)
     caches["blocks"] = _stack(blk)
     for layer in model.suffix:
-        x, c = apply_layer(layer, cfg, x, **kw)
+        x, c, _ = apply_layer(layer, cfg, x, **kw)
         caches["suffix"].append(c)
     return model.logits(x[:, -1:]), caches
 
@@ -332,14 +406,14 @@ def decode_step(model: LM, cache: Cache, token, pos=None, ring: bool = False,
                "suffix": [None] * len(model.suffix)}
     new: Cache = {"prefix": [], "blocks": out["blocks"], "suffix": []}
     for layer, c, o in zip(model.prefix, cache["prefix"], out["prefix"]):
-        x, nc = apply_layer(layer, cfg, x, cache=c, out=o, **kw)
+        x, nc, _ = apply_layer(layer, cfg, x, cache=c, out=o, **kw)
         new["prefix"].append(nc)
     for bm, bc, bn in zip(model.blocks, _unbind(cache["blocks"], n),
                           _unbind(out["blocks"], n)):
         for name, layer in bm.items():
-            x, _ = apply_layer(layer, cfg, x, cache=bc[name], out=bn[name],
-                               **kw)
+            x, _, _ = apply_layer(layer, cfg, x, cache=bc[name],
+                                  out=bn[name], **kw)
     for layer, c, o in zip(model.suffix, cache["suffix"], out["suffix"]):
-        x, nc = apply_layer(layer, cfg, x, cache=c, out=o, **kw)
+        x, nc, _ = apply_layer(layer, cfg, x, cache=c, out=o, **kw)
         new["suffix"].append(nc)
     return model.logits(x), new

@@ -158,11 +158,14 @@ def image_from_jax(params: Mapping, *, device="cuda") -> ImageTower:
 
 def lm_from_jax(params: Mapping, cfg: ModelConfig, *, device="cuda") -> LM:
     """An :class:`LM` holding ``transformer.init_params`` weights:
-    ``embed``, ``ln_f``, the ``prefix`` / ``suffix`` layer lists (empty for
-    the ported families), the stacked ``blocks`` split per layer (``ln1``,
-    the mixer's ``mix.*``: GQA ``wq`` / ``wk`` / ``wv`` / ``wo`` with its
-    optional biases and q/k norms, or the SSM's; ``ln2`` and ``mlp.wi`` /
-    ``wg`` / ``wo`` for a dense MLP), and ``head`` unless the embeddings
+    ``embed``, ``ln_f``, the ``prefix`` / ``suffix`` layer lists (an MoE
+    config's dense first layers; the hybrid's remainder), the stacked
+    ``blocks`` split per layer (``ln1``, the mixer's ``mix.*``: GQA ``wq`` /
+    ``wk`` / ``wv`` / ``wo`` with its optional biases and q/k norms, MLA's
+    ``wq`` / ``wdkv`` / ``kv_norm`` / ``wukv`` / ``wo``, the SSM's or the
+    RG-LRU's; ``ln2`` and ``mlp.wi`` / ``wg`` / ``wo`` for a dense MLP, or
+    ``moe.router``, the per-expert stacks ``moe.wi`` / ``wg`` / ``wo`` and
+    ``moe.shared.*`` for a routed one), and ``head`` unless the embeddings
     are tied."""
     model = LM(cfg, device=device)
     load_numpy(model, _unstack_blocks(dict(_flatten(params))))

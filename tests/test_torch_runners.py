@@ -546,6 +546,36 @@ def test_decode_runner_places_rows_at_the_device_position(cpu_graphs):
         run(graph, tok)
 
 
+@pytest.mark.parametrize("arch,prompt", [("recurrentgemma-2b", 61),
+                                         ("deepseek-v2-lite-16b", 14)])
+def test_decode_runner_serves_the_hybrid_and_moe(cpu_graphs, arch, prompt):
+    """The hybrid (RG-LRU states updated in place, the local attention's
+    64-row ring wrapped by the steps at 61..66) and MoE with MLA (the
+    latent rows written at the device position; routing with no host
+    read): each step's logits and the set's cache bitwise the eager
+    ``decode_step``'s, one graph for every position; a step without its
+    position raises, as a local or MLA layer reads it."""
+    cfg = replace(get_config(arch, smoke=True), dtype="float32")
+    model = _live(tfm.LM(cfg, device="cpu"), 19)
+    tokens = np.random.RandomState(3).randint(0, cfg.vocab, (1, prompt))
+    logits, trunk = tfm.prefill(model, tokens, max_len=prompt + 8)
+    assert tfm.uses_pos(cfg)
+    cache = fork_model_cache(trunk, 2)
+    run = runners.DecodeRunner(model)
+    tok = logits.argmax(-1).repeat_interleave(2, 0)
+    eager, graph = cache, cache
+    for i in range(6):
+        want, eager = tfm.decode_step(model, eager, tok, prompt + i)
+        got, graph = run(graph, tok, prompt + i)
+        assert torch.equal(got, want)
+        for a, b in zip(kvcache._leaves(graph), kvcache._leaves(eager)):
+            assert torch.equal(a, b)
+        tok = want.argmax(-1)
+    assert len(run.graphs) == 1 and run.replays == 6
+    with pytest.raises(ValueError, match="position"):
+        run(graph, tok)
+
+
 def test_decode_runner_refreshes_weights_when_a_decode_starts(
         cpu_graphs, monkeypatch):
     """A step fed back the runner's own cache only fills the token and
@@ -574,8 +604,9 @@ def test_decode_runner_refreshes_weights_when_a_decode_starts(
 def test_cuda_replay_equals_eager():
     """On the card: a captured branch segment of the smoke DiT on the
     kernel routes replays bitwise equal to the eager body, twice, a decode
-    graph gives the eager loop's tokens, and a dense LM's decode graph (one
-    for every position) the eager steps' logits bitwise."""
+    graph gives the eager loop's tokens, and a dense LM's, the hybrid's
+    (across its local ring's wrap) and an MoE LM's decode graphs (one for
+    every position) the eager steps' logits and caches bitwise."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: CUDA graphs and the hand-written "
                     "kernels run only there")
@@ -641,3 +672,23 @@ def test_cuda_replay_equals_eager():
         got, graph = drun(graph, tok, 40 + i)
         assert torch.equal(got, want)
         tok = want.argmax(-1)
+
+    # the hybrid across its local ring's wrap (window 64), and MoE with MLA
+    for arch, prompt in (("recurrentgemma-2b", 61),
+                         ("deepseek-v2-lite-16b", 40)):
+        hcfg = replace(get_config(arch, smoke=True), attn_impl="kernel")
+        lm = _live(tfm.LM(hcfg, device="cpu"), 20).to(dev)
+        lm.cast_weights_()
+        logits, trunk = tfm.prefill(lm, np.arange(prompt)[None] % hcfg.vocab,
+                                    max_len=prompt + 8)
+        cache = fork_model_cache(trunk, 2)
+        drun = runners.DecodeRunner(lm)
+        eager, graph = cache, cache
+        tok = logits.argmax(-1).repeat_interleave(2, 0)
+        for i in range(6):
+            want, eager = tfm.decode_step(lm, eager, tok, prompt + i)
+            got, graph = drun(graph, tok, prompt + i)
+            assert torch.equal(got, want), (arch, i)
+            for a, b in zip(kvcache._leaves(graph), kvcache._leaves(eager)):
+                assert torch.equal(a, b), (arch, i)
+            tok = want.argmax(-1)
