@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--parent DIR]
 
-Run from the root of a checkout.  Nine phases; any failure exits non-zero
+Run from the root of a checkout.  Ten phases; any failure exits non-zero
 without the result line:
 
 1. build — compile the CUDA kernels under ``src/repro_torch/csrc`` with
@@ -157,6 +157,25 @@ without the result line:
    step's tokens go to and its consistency check at capacity factor 8.0;
    then ``kimi-k2`` at smoke size (GQA + MoE) in the launcher's
    shared-prefix mode;
+5e. vlm_encdec — the cross-attention LMs (``phase_vlm_encdec``), each at
+   full width and depth with bf16 activations and flash on the kernel
+   route: ``llama-3.2-vision-11b`` (40 layers: 8 ``(attn x4, cross_attn)``
+   super-blocks, d_model 4096, GQA 32/8 x 128, vocab 128256, 1024 image
+   tokens of 1280 projected to d_model) and ``seamless-m4t-large-v2`` (24
+   bidirectional encoder layers over frame embeddings of 1024, 24
+   ``cross_attn`` decoder layers, MHA 16 x 64, GELU, vocab 256206).  For
+   each: the launcher in both modes (the JAX launcher's zero memory: 1024
+   image tokens, 32 frames), every prefill launching sm90 flash exactly
+   48 (VLM: 40 causal self-attentions, 8 cross) or 72 times (seamless: 24
+   encoder, 24 decoder self, 24 cross) and no decode step any kernel; with
+   seeded non-zero memories (VLM ``(4, 1024, 1280)`` image embeddings,
+   seamless ``(4, 256, 1024)`` frames: ``max(seq // 4, 16)``) the decode
+   graph against eager ``decode_step`` over 32 steps (bitwise),
+   ``shared_prefix_prefill`` over 2 groups of 4 and
+   ``cached_prefix_prefill`` over g0, g1, g0, g1 (each group one memory),
+   the decode step's bytes (and those of its cross-attention) beside its
+   floor, prefill/decode against ``forward_train``, one traced prefill and
+   one traced replayed decode step;
 5d. train — the training path (``phase_train``) at the full ``sage-dit``
    width (f32 master weights, bf16 activations, remat, the plain attention
    route: the kernels have no backward): three SAGE steps (Eq. 3, K x N =
@@ -174,7 +193,8 @@ without the result line:
 6. reference — each path at smoke size on the card against the plain CPU
    path: equal groups, NFE, launches and token-step counts, images and
    logits within tolerance; the stream traces the same way (equal
-   outcomes and records, images within 1e-3);
+   outcomes and records, images within 1e-3); the VLM and encdec smoke
+   LMs with seeded non-zero memories;
 7. graph nodes — the kernel nodes of each DiT path's segment graphs
    (``[graph-nodes:<path>]``), and the device time of one segment step
    without the DiT (the solver's part of a step).  With ``--parent DIR``,
@@ -1536,6 +1556,23 @@ FLASH_CASES = [
      1, 256, True, 2048, BF16),
     ("kimi_smoke_prefill causal 1x1024x1024 h4/2 d64", 1, 1024, 1024, 4, 2,
      64, True, 0, BF16),
+    # the cross-attention LMs' prefills at the launcher's batch: the VLM's
+    # cross-attention to 1024 image tokens (non-causal GQA 32/8 at d128;
+    # its self-attention is qwen3's causal kind); seamless's encoder over
+    # its 256 frames (non-causal, RoPE'd before the kernel), its decoder's
+    # cross-attention to those frames and to the launcher's 32 (one partial
+    # 64-key tile), and its causal decoder self-attention (d64).  f32 too
+    # where the prefill/decode consistency check runs the 3xTF32 route
+    ("vlm_cross 4x1024x1024 h32/8 d128", 4, 1024, 1024, 32, 8, 128, False,
+     0, BOTH),
+    ("seamless_enc 4x256x256 h16 d64", 4, 256, 256, 16, 16, 64, False, 0,
+     BOTH),
+    ("seamless_cross 4x1024x256 h16 d64", 4, 1024, 256, 16, 16, 64, False,
+     0, BOTH),
+    ("seamless_cross 4x1024x32 h16 d64", 4, 1024, 32, 16, 16, 64, False, 0,
+     BF16),
+    ("seamless_self causal 4x1024x1024 h16 d64", 4, 1024, 1024, 16, 16, 64,
+     True, 0, BOTH),
 ]
 
 
@@ -1767,7 +1804,17 @@ PATHS = {"ddim": dict(total_steps=30),
                      gen=32, groups=2, members=4, tail=64, n_layers=12),
          # GQA + MoE at smoke size (1.03e12 parameters do not fit one card)
          "moe:kimi": dict(arch="kimi-k2-1t-a32b", batch=4, prompt_len=1024,
-                          gen=32)}
+                          gen=32),
+         # the cross-attention LMs at full width and depth: the VLM's
+         # memory is its 1024 image tokens; seamless's encoder reads
+         # max(prompt_len // ENC_FRAMES_DIV, 16) frames (the JAX package's
+         # launch/specs.py), the launcher's 32; sm90 launches a prefill
+         "vlm": dict(arch="llama-3.2-vision-11b", batch=4, prompt_len=1024,
+                     gen=32, groups=2, members=4, tail=64, per_prefill=48),
+         "encdec": dict(arch="seamless-m4t-large-v2", batch=4,
+                        prompt_len=1024, gen=32, groups=2, members=4,
+                        tail=64, per_prefill=72, launcher_frames=32)}
+ENC_FRAMES_DIV = 4
 DIT_PATHS = ("ddim", "dpmpp")
 # kernels each path must launch; "never" must stay at 0 launches
 PATH_KERNELS = {"ddim": dict(needs=("flash_attention", "ddim_step"),
@@ -1805,7 +1852,9 @@ PATH_KERNELS = {"ddim": dict(needs=("flash_attention", "ddim_step"),
                                   "dpmpp_step", "group_mean", "ssd_scan"))
                    for p in ("dense", "dense:cache", "dense:qwen3",
                              # the hybrid's local attention and kimi's GQA
-                             "hybrid", "hybrid:cache", "moe:kimi")},
+                             "hybrid", "hybrid:cache", "moe:kimi",
+                             # self, cross and encoder attention
+                             "vlm", "vlm:cache", "encdec", "encdec:cache")},
                 # MLA attends through plain torch (query/key width 192,
                 # value width 128), and the experts are batched products:
                 # the deepseek path launches no kernel of the port's
@@ -3487,7 +3536,7 @@ def _host_ms(fn, reps=3):
 
 
 def _cached_prefix(failures, model, groups, max_len, path, kernel,
-                   per_prefill=None):
+                   per_prefill=None, extras=None):
     """``cached_prefix_prefill`` over the shared-prefix groups in the order
     g0, g1, g0, g1 through one ``TrunkCache`` whose budgets are one payload
     on the device and two on the host (a payload: the trunk prefill's
@@ -3498,8 +3547,10 @@ def _cached_prefix(failures, model, groups, max_len, path, kernel,
     logits and caches bitwise those of the group's miss.  Printed: each
     call's wall with its prefill, lookup and insert milliseconds (each
     between device syncs), and the CRC, spill and promotion milliseconds
-    of one payload.  Returns the run's launches (by the wrappers, by graph
-    replays)."""
+    of one payload.  A cross-attention LM's group ``g`` prefills over its
+    own memory, ``extras[g]`` (one row; the cache's key holds the tokens
+    alone, as the JAX package's does).  Returns the run's launches (by the
+    wrappers, by graph replays)."""
     import numpy as np
     import torch
     from repro_torch.models import transformer as tfm
@@ -3512,7 +3563,9 @@ def _cached_prefix(failures, model, groups, max_len, path, kernel,
 
     dev = model.device
     prefix = PATHS[path]["prompt_len"]
-    payload = tfm.prefill(model, groups[0][:1, :prefix], max_len=max_len)
+    extras = extras or [None] * len(groups)
+    payload = tfm.prefill(model, groups[0][:1, :prefix], extras[0],
+                          max_len=max_len)
     one = cache_bytes(payload)
     cache = TrunkCache(tau_trunk=0.9, max_bytes=one, host_bytes=2 * one)
     cents = np.random.RandomState(3).randn(len(groups), 64)
@@ -3529,7 +3582,8 @@ def _cached_prefix(failures, model, groups, max_len, path, kernel,
         return call
     cache.lookup = timed("lookup", cache.lookup)
     cache.insert = timed("insert", cache.insert)
-    prefill = timed("prefill", lambda t, m: tfm.prefill(model, t, max_len=m))
+    prefill = [timed("prefill", lambda t, m, ex=ex: tfm.prefill(
+        model, t, ex, max_len=m)) for ex in extras]
     counters = _counters()
     first, calls = {}, []
     _reset_counts(counters)
@@ -3539,7 +3593,7 @@ def _cached_prefix(failures, model, groups, max_len, path, kernel,
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         logits, caches, _, st = cached_prefix_prefill(
-            prefill, lambda c, t, p: tfm.decode_step(model, c, t, p),
+            prefill[g], lambda c, t, p: tfm.decode_step(model, c, t, p),
             groups[g], max_len, cache=cache, centroid=cents[g])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -3694,6 +3748,12 @@ def _lm_model(arch, dev, seed, smoke=False, tag="dense", **over):
         extra += f" {cfg.mla}"
     if cfg.rglru is not None:
         extra += f" {cfg.rglru} window {cfg.window}"
+    if cfg.family == "vlm":
+        extra += (f" memory {cfg.n_image_tokens} image tokens x "
+                  f"{cfg.vision_dim} projected to d_model")
+    if cfg.family == "encdec":
+        extra += (f" encoder {cfg.enc_layers} bidirectional layers over "
+                  f"frames of {cfg.enc_input_dim}")
     log(f"[e2e:{tag}] {cfg.name}: {cfg.n_layers} layers ({layers}) d_model "
         f"{cfg.d_model} heads {cfg.n_heads}/{cfg.n_kv_heads} x {cfg.hd} "
         f"attn {cfg.attn_kind} d_ff {cfg.d_ff} {cfg.mlp_kind} qk_norm="
@@ -3721,31 +3781,59 @@ def _attn_widths(cfg):
     return cfg.hd, cfg.hd
 
 
-def _prefill_flops(model, batch, seq):
+def _memory_kv(model):
+    """The ids of the cross-attention blocks' parameters that read only the
+    memory (its K/V projections), which a prefill applies once to the
+    memory's rows and a decode step never reads."""
+    return {id(p) for lay in _lm_layers(model) if lay.kind == "cross_attn"
+            for k, p in lay.xattn.items() if k in ("wk", "wv", "bk", "bv",
+                                                    "k_norm")}
+
+
+def _prefill_flops(model, batch, seq, n_mem=0):
     """A prefill's operations: 2 a weight of every layer matrix a token (of
     an MoE layer's routed experts, the ``top_k`` a token goes to), the head
     on the last token of each row, and causal attention (2 a visible pair a
-    head a query/key and a value width; a local layer sees its window)."""
-    from repro_torch.config import MIX_ATTN, MIX_LOCAL_ATTN
+    head a query/key and a value width; a local layer sees its window).
+    With a memory of ``n_mem`` rows (the VLM's image tokens, encdec's
+    frames): the memory itself (the VLM's projection; encdec's encoder:
+    its input projection, its layers' matrices and bidirectional attention
+    over all frame pairs), each cross layer's K/V projections of the
+    memory once, and its queries' attention over every memory row."""
+    from repro_torch.config import MIX_ATTN, MIX_CROSS_ATTN, MIX_LOCAL_ATTN
     cfg = model.cfg
+    mem_kv = _memory_kv(model)
     layer = sum(p.numel() for n, p in model.named_parameters()
                 if p.ndim == 2 and n.split(".")[0] in ("prefix", "blocks",
-                                                      "suffix"))
+                                                      "suffix")
+                and id(p) not in mem_kv)
     dqk, dv = _attn_widths(cfg)
     attn = experts = 0.0
     for lay in _lm_layers(model):
-        if lay.kind in (MIX_ATTN, MIX_LOCAL_ATTN):
+        if lay.kind in (MIX_ATTN, MIX_LOCAL_ATTN, MIX_CROSS_ATTN):
             w = cfg.window if lay.kind == MIX_LOCAL_ATTN else 0
             pairs = (seq * (seq + 1) // 2 if not w or w >= seq
                      else w * (w + 1) // 2 + (seq - w) * w)
             attn += 2.0 * batch * cfg.n_heads * pairs * (dqk + dv)
+        if lay.kind == MIX_CROSS_ATTN:
+            attn += 2.0 * batch * cfg.n_heads * seq * n_mem * 2 * cfg.hd
         if lay.mlpk == "moe":
             experts += 3 * cfg.moe.top_k * cfg.d_model * cfg.moe.d_ff_expert
+    memory = 2.0 * batch * n_mem * sum(p.numel() for p in model.parameters()
+                                       if id(p) in mem_kv and p.ndim == 2)
+    if cfg.family == "vlm":
+        memory += 2.0 * batch * n_mem * model.proj.numel()
+    if cfg.family == "encdec":
+        enc = sum(p.numel() for n, p in model.named_parameters()
+                  if p.ndim == 2 and n.startswith("enc_"))
+        memory += (2.0 * batch * n_mem * enc + len(model.enc_blocks) * 2.0
+                   * batch * cfg.n_heads * n_mem * n_mem * 2 * cfg.hd)
     return (2.0 * (layer + experts) * batch * seq
-            + 2.0 * cfg.d_model * cfg.vocab * batch + attn)
+            + 2.0 * cfg.d_model * cfg.vocab * batch + attn + memory)
 
 
-def _decode_floor_bytes(model, batch, pos, max_len=None, active=None):
+def _decode_floor_bytes(model, batch, pos, max_len=None, active=None,
+                        n_mem=0):
     """The bytes one decode step at ``pos`` must move: each weight it reads
     once, in the dtype it is read in (the cast-once copies; the norms in
     f32; ``batch`` rows of the embedding), each cache row it attends to
@@ -3754,10 +3842,14 @@ def _decode_floor_bytes(model, batch, pos, max_len=None, active=None):
     recurrent state read and written, the new rows and the logits written
     once.  ``active`` (MoE) holds, per MoE layer in order, the experts the
     step's tokens go to: only their weights count (by default every
-    expert's, as the all-expert batched product reads them)."""
+    expert's, as the all-expert batched product reads them).  A
+    cross-attention layer also reads its memory's ``n_mem`` cached K/V
+    rows once; the weights that only make the memory (the VLM's projector,
+    the encoder, the cross K/V projections) are not read."""
     import torch
-    from repro_torch.config import MIX_ATTN, MIX_LOCAL_ATTN
+    from repro_torch.config import MIX_ATTN, MIX_CROSS_ATTN, MIX_LOCAL_ATTN
     cfg = model.cfg
+    skip = _memory_kv(model)
     dtype = getattr(torch, cfg.dtype)
     bf = torch.tensor([], dtype=dtype).element_size()
     cast = {id(p) for p in model._cast}
@@ -3770,6 +3862,8 @@ def _decode_floor_bytes(model, batch, pos, max_len=None, active=None):
                 share[id(w)] = n / cfg.moe.n_routed
     total = 0
     for name, p in model.named_parameters():
+        if id(p) in skip or name == "proj" or name.startswith("enc_"):
+            continue
         if name == "embed":
             total += batch * p.shape[1] * p.element_size()
             if cfg.tie_embeddings:
@@ -3779,7 +3873,7 @@ def _decode_floor_bytes(model, batch, pos, max_len=None, active=None):
                 bf if id(p) in cast else p.element_size())
     big = float("inf") if max_len is None else max_len
     for lay in layers:
-        if lay.kind in (MIX_ATTN, MIX_LOCAL_ATTN):
+        if lay.kind in (MIX_ATTN, MIX_LOCAL_ATTN, MIX_CROSS_ATTN):
             rows = min(cfg.window, big) if lay.kind == MIX_LOCAL_ATTN else big
             if cfg.attn_kind == "mla":
                 row = batch * (cfg.mla.kv_lora_rank
@@ -3787,6 +3881,8 @@ def _decode_floor_bytes(model, batch, pos, max_len=None, active=None):
             else:
                 row = 2 * batch * cfg.n_kv_heads * cfg.hd * bf
             total += row * min(pos + 1, rows) + row
+            if lay.kind == MIX_CROSS_ATTN:
+                total += 2 * batch * cfg.n_kv_heads * cfg.hd * bf * n_mem
         else:                    # a recurrent state, read and written
             total += 2 * sum(x.numel() * x.element_size() for x in
                              lay.init_cache(cfg, batch, 1, dtype).values())
@@ -3874,13 +3970,14 @@ def _replay_vs_eager(label, model, decode, caches, tok, pos, n, failures):
     return replay_s, eager_s
 
 
-def _prefill_decode_consistency(label, model, seq, failures):
+def _prefill_decode_consistency(label, model, seq, failures, extras=None):
     """prefill(S - 1) then decode_step at S - 1 against ``forward_train``
     over the S tokens at positions S - 2 and S - 1.  In f32: allclose at
     ``DENSE_TOL32``.  In bf16: the pair against the f32 ``forward_train``,
     its largest and mean error within ``DENSE_BF16`` times those of the
     bf16 ``forward_train`` against the same f32 one; the pair against the
-    bf16 ``forward_train`` at the JAX test's ``DENSE_TOL`` is printed."""
+    bf16 ``forward_train`` at the JAX test's ``DENSE_TOL`` is printed.
+    A cross-attention LM reads ``extras``' memory (one row)."""
     import numpy as np
     import torch
     from repro_torch.models import transformer as tfm
@@ -3889,8 +3986,9 @@ def _prefill_decode_consistency(label, model, seq, failures):
     for dtype in ("float32", "bfloat16"):
         m = _as_dtype(model, dtype)
         with torch.no_grad():
-            full, _ = tfm.forward_train(m, tokens)
-        last, cache = tfm.prefill(m, tokens[:, :seq - 1], max_len=seq + 4)
+            full, _ = tfm.forward_train(m, tokens, extras)
+        last, cache = tfm.prefill(m, tokens[:, :seq - 1], extras,
+                                  max_len=seq + 4)
         dec, _ = tfm.decode_step(m, cache, tokens[:, seq - 1:], seq - 1)
         pair[dtype] = torch.cat([last, dec], 1).float()
         want[dtype] = full[:, seq - 2:].float()
@@ -3928,13 +4026,14 @@ def _prefill_decode_consistency(label, model, seq, failures):
 
 
 def _lm_serve(failures, model, arch, modes, spec=None, per_prefill=None,
-                 smoke=False, tag="dense"):
+                 smoke=False, tag="dense", n_mem=0):
     """The launcher on ``model`` at ``spec``'s (default
     ``PATHS["dense"]``'s) batch, prompt and generation, in each of
     ``modes`` (shared_prefix); each prefill must launch the sm90 flash
     kernel ``per_prefill`` times (default: once a layer) and no other
     kernel.  Prints the prefill beside its FLOP floor and the decode
-    beside the step's byte floor at the first generated position.
+    beside the step's byte floor at the first generated position (with
+    the launcher's memory of ``n_mem`` rows for a cross-attention LM).
     Returns the last run."""
     import torch
     from repro_torch.launch.serve import serve
@@ -3950,9 +4049,10 @@ def _lm_serve(failures, model, arch, modes, spec=None, per_prefill=None,
         n = {k: v - before[k] for k, v in launch_counts().items()
              if v != before[k]}
         rows = 1 if shared else spec["batch"]
-        floor = _prefill_flops(model, rows, P) / PEAK_FLOPS["bfloat16"]
+        floor = (_prefill_flops(model, rows, P, n_mem)
+                 / PEAK_FLOPS["bfloat16"])
         step_bytes = _decode_floor_bytes(model, spec["batch"], P,
-                                         max_len=P + gen + 8)
+                                         max_len=P + gen + 8, n_mem=n_mem)
         step_floor = step_bytes / HBM_BYTES_PER_S
         log(f"[e2e:{tag}] {model.cfg.name} launcher shared_prefix={shared}: "
             f"prefill_s={r['prefill_s']:.4f} ({rows} x {P}"
@@ -4004,30 +4104,55 @@ def _active_experts(model, fn):
     return counts
 
 
-def _decode_bytes(failures, model, spec=None, tag="dense"):
+def _decode_bytes(failures, model, spec=None, tag="dense", extras=None,
+                  n_mem=0):
     """One decode step of the launcher's shape (``spec``, default
     ``PATHS["dense"]``) at position prompt_len, in place on a copy of a
     prefilled cache as the decode graph runs it: the bytes its ops move
     (``_op_bytes``) beside the step's floor (``_decode_floor_bytes``; for
     an MoE model also with only the experts the step's tokens go to), and
-    the same for the functional step, which writes a whole new cache.
-    Returns the cache and the next token, for the profiled decode step."""
+    the same for the functional step, which writes a whole new cache (and
+    passes the memory's K/V on).  A cross-attention LM prefills over
+    ``extras`` (a memory of ``n_mem`` rows); the bytes its cross blocks'
+    ops move in the step (``gqa_cross_decode``: the query and output
+    projections, ``attend`` over the cached memory K/V) are printed
+    beside the memory K/V's own.  Returns the cache and the next token,
+    for the profiled decode step."""
     import numpy as np
     import torch
+    from repro_torch.models import attention as attn
     from repro_torch.models import transformer as tfm
     spec, dev = spec or PATHS["dense"], model.device
     B, P = spec["batch"], spec["prompt_len"]
     L = P + spec["gen"] + 8
     prompts = np.random.RandomState(0).randint(0, model.cfg.vocab, (B, P))
-    logits, cache = tfm.prefill(model, prompts, max_len=L)
+    logits, cache = tfm.prefill(model, prompts, extras, max_len=L)
     tok = logits.argmax(dim=-1)
     pos = torch.tensor(P, device=dev)
     in_place, by_op = _op_bytes(
         lambda: tfm.decode_step(model, cache, tok, pos, out=cache))
     functional, _ = _op_bytes(lambda: tfm.decode_step(model, cache, tok, P))
-    floor = _decode_floor_bytes(model, B, P, max_len=L)
+    floor = _decode_floor_bytes(model, B, P, max_len=L, n_mem=n_mem)
     top = sorted(by_op.items(), key=lambda kv: -kv[1])[:6]
     active = ""
+    if n_mem:
+        cfg = model.cfg
+        h = torch.randn((B, 1, cfg.d_model), device=dev,
+                        dtype=getattr(torch, cfg.dtype))
+        xs = [(bm[name].xattn, {k: v[i] for k, v in c["cross"].items()})
+              for name, c in cache["blocks"].items() if "cross" in c
+              for i, bm in enumerate(model.blocks)]
+        cross, cross_by = _op_bytes(lambda: [
+            attn.gqa_cross_decode(p, cfg, h, kv) for p, kv in xs])
+        kv_bytes = sum(t.numel() * t.element_size()
+                       for _, kv in xs for t in kv.values())
+        active = (f"; its {len(xs)} cross blocks' ops move "
+                  f"{cross / 1e9:.4f} GB ({cross / in_place:.3f} of the "
+                  f"step; by op (GB): "
+                  + ", ".join(f"{k} {v / 1e9:.4f}" for k, v in sorted(
+                      cross_by.items(), key=lambda kv: -kv[1])[:4])
+                  + f"), the memory K/V they read {kv_bytes / 1e9:.4f} GB "
+                  f"({n_mem} rows)")
     if model.cfg.moe is not None:
         used = _active_experts(model, lambda: tfm.decode_step(model, cache,
                                                               tok, P))
@@ -4328,20 +4453,22 @@ def _hybrid(failures, dev):
     return out
 
 
-def _graph_check(failures, model, spec, P, tag, what):
+def _graph_check(failures, model, spec, P, tag, what, extras=None):
     """The decode graph against eager ``decode_step`` over ``spec["gen"]``
-    steps from a prefill of ``spec["batch"]`` x ``P`` tokens
-    (``_replay_vs_eager``), with both rates.  Returns the rows of the
-    prefill's attention caches, by layer of the block."""
+    steps from a prefill of ``spec["batch"]`` x ``P`` tokens (over
+    ``extras``' memory for a cross-attention LM; ``_replay_vs_eager``),
+    with both rates.  Returns the rows of the prefill's attention caches,
+    by layer of the block."""
     import numpy as np
     import torch
     from repro_torch.models import transformer as tfm
     from repro_torch.serving.runners import DecodeRunner
     B, gen = spec["batch"], spec["gen"]
     prompts = np.random.RandomState(1).randint(0, model.cfg.vocab, (B, P))
-    logits, cache = tfm.prefill(model, prompts, max_len=P + gen + 8)
+    logits, cache = tfm.prefill(model, prompts, extras, max_len=P + gen + 8)
+    selfs = {name: c.get("self", c) for name, c in cache["blocks"].items()}
     rows = {name: (c["k"] if "k" in c else c["ckv"]).shape[2]
-            for name, c in cache["blocks"].items() if {"k", "ckv"} & set(c)}
+            for name, c in selfs.items() if {"k", "ckv"} & set(c)}
     decode = DecodeRunner(model)
     replay_s, eager_s = _replay_vs_eager(
         f"{tag} (attention caches {rows} rows) {what}", model, decode,
@@ -4356,9 +4483,10 @@ def _graph_check(failures, model, spec, P, tag, what):
     return rows
 
 
-def _profiles(failures, model, spec, cache, tok, tag):
-    """One traced prefill at the launcher's shape and one traced replayed
-    decode step from ``cache``, each trace held to the counts."""
+def _profiles(failures, model, spec, cache, tok, tag, extras=None):
+    """One traced prefill at the launcher's shape (over ``extras``' memory
+    for a cross-attention LM) and one traced replayed decode step from
+    ``cache``, each trace held to the counts."""
     import numpy as np
     from repro_torch.models import transformer as tfm
     from repro_torch.serving.runners import DecodeRunner
@@ -4367,7 +4495,7 @@ def _profiles(failures, model, spec, cache, tok, tag):
     counters = _counters()
     _reset_counts(counters)
     rows = _profile(f"{tag} prefill {B}x{P}",
-                    lambda: tfm.prefill(model, prompts,
+                    lambda: tfm.prefill(model, prompts, extras,
                                         max_len=P + spec["gen"] + 8),
                     ("flash_sm90_kernel",))
     _trace_check(f"{tag} prefill", rows, _summed(*_ran()), failures)
@@ -4457,6 +4585,150 @@ def phase_hybrid_moe(failures):
     return out
 
 
+def _cross_memory(cfg, batch, seq, dev, seed):
+    """Seeded non-zero memory inputs, f32 on the card: the VLM's image
+    embeddings (batch, n_image_tokens, vision_dim), or encdec's frames
+    (batch, max(seq // ENC_FRAMES_DIV, 16), enc_input_dim).  (The
+    launcher's memory is zeros, through which each cross-attention adds
+    exactly 0: it cannot show a broken cross path.)"""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    if cfg.family == "vlm":
+        return {"image_embeds": torch.randn(
+            (batch, cfg.n_image_tokens, cfg.vision_dim), device=dev,
+            generator=gen)}
+    return {"frames": torch.randn(
+        (batch, max(seq // ENC_FRAMES_DIV, 16), cfg.enc_input_dim),
+        device=dev, generator=gen)}
+
+
+def _first_rows(extras, n=1):
+    return {k: v[:n] for k, v in extras.items()}
+
+
+def _cross_lm(failures, dev, path):
+    """One cross-attention LM (``PATHS[path]``) at full width and depth:
+    the launcher in both modes (its zero memory), counted; then over
+    seeded memories: a timed prefill beside its FLOP floor, the decode
+    graph against eager ``decode_step``, ``shared_prefix_prefill`` over
+    the groups (each its own memory) and ``cached_prefix_prefill`` over
+    g0, g1, g0, g1, the decode step's bytes, prefill/decode against
+    ``forward_train``, and the profiles.  Every prefill must launch sm90
+    flash ``spec["per_prefill"]`` times, a decode step or a hit none.
+    Returns the paths' launches."""
+    import numpy as np
+    import torch
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serving.runners import launch_counts
+    from repro_torch.serving.shared_prefill import shared_prefix_prefill
+    spec = PATHS[path]
+    model = _lm_model(spec["arch"], dev, seed=0, tag=path)
+    cfg = model.cfg
+    B, P, gen, per = (spec["batch"], spec["prompt_len"], spec["gen"],
+                      spec["per_prefill"])
+    memory = _cross_memory(cfg, B, P, dev, seed=1)
+    n_mem = next(iter(memory.values())).shape[1]
+    launcher_mem = (cfg.n_image_tokens if cfg.family == "vlm"
+                    else spec["launcher_frames"])
+    _cast_check(f"{cfg.name} prefill 1 x 256", model._cast,
+                lambda: tfm.prefill(model, np.arange(256)[None],
+                                    _first_rows(memory))[0], failures)
+    counters = _counters()
+    _reset_counts(counters)
+    torch.cuda.synchronize()
+    _lm_serve(failures, model, spec["arch"], (False, True), spec=spec,
+              per_prefill=per, tag=path, n_mem=launcher_mem)
+    wrappers, replayed = _ran()
+    _check_path_kernels(path, _summed(wrappers, replayed), failures)
+    if any(replayed.values()):
+        failures.append(f"e2e {path}: the decode graphs hold kernels of the "
+                        f"port's: {replayed}")
+    out = {path: (wrappers, replayed)}
+
+    # a prefill over the seeded memory, warm, beside its floor
+    prompts = np.random.RandomState(0).randint(0, cfg.vocab, (B, P))
+    L = P + gen + 8
+    tfm.prefill(model, prompts, memory, max_len=L)
+    before = launch_counts()["flash_attention/sm90"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, _ = tfm.prefill(model, prompts, memory, max_len=L)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n = launch_counts()["flash_attention/sm90"] - before
+    floor = _prefill_flops(model, B, P, n_mem) / PEAK_FLOPS["bfloat16"]
+    log(f"[e2e:{path}] prefill {B} x {P} over a seeded memory of {n_mem} "
+        f"rows: prefill_s={wall:.4f} (FLOP floor {floor * 1e3:.3f} ms at the "
+        f"bf16 peak, {floor / wall:.3f} of it) sm90 launches {n} (want "
+        f"{per}) logits_finite={bool(torch.isfinite(logits).all())}; {_SMI}")
+    if n != per or not torch.isfinite(logits).all():
+        failures.append(f"e2e {path} seeded prefill: {n} sm90 launches "
+                        f"(want {per}), or non-finite logits")
+    del logits
+
+    _graph_check(failures, model, spec, P, path,
+                 f"over a seeded memory of {n_mem} rows", extras=memory)
+
+    tail = spec["tail"]
+    groups = list(_group_tokens(np.random.RandomState(0), cfg.vocab,
+                                spec["groups"], spec["members"], P, tail))
+    mems = [_cross_memory(cfg, 1, P, dev, seed=10 + g)
+            for g in range(len(groups))]
+    max_len = P + tail + gen + 8
+    for g, tokens in enumerate(groups):
+        before = launch_counts()["flash_attention/sm90"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, _, _, st = shared_prefix_prefill(
+            lambda t, m: tfm.prefill(model, t, mems[g], max_len=m),
+            lambda c, t, p: tfm.decode_step(model, c, t, p), tokens,
+            max_len)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = launch_counts()["flash_attention/sm90"] - before
+        want = _expected_steps(tokens)
+        ok = st == want and n == per and bool(torch.isfinite(logits).all())
+        log(f"[e2e:{path}] shared_prefix_prefill group {g}: "
+            f"{tokens.shape[0]} x {tokens.shape[1]} tokens over its own "
+            f"memory, wall_s={wall:.4f} (one 1 x {P} trunk prefill, the fork"
+            f", {tail} eager catch-up steps) counts {st} sm90 launches {n} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"e2e {path} shared_prefix_prefill group {g}: "
+                            f"counts {st} (want {want}), {n} sm90 launches "
+                            f"(want {per}), or non-finite logits")
+        del logits
+    out[f"{path}:cache"] = _cached_prefix(
+        failures, model, groups, max_len, path, "flash_attention/sm90",
+        per_prefill=per, extras=mems)
+    cache, tok = _decode_bytes(failures, model, spec, path, extras=memory,
+                               n_mem=n_mem)
+    _prefill_decode_consistency(cfg.name, model, P, failures,
+                                extras=_first_rows(memory))
+    _profiles(failures, model, spec, cache, tok, path, extras=memory)
+    del model, cache, memory, mems
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_vlm_encdec(failures):
+    """The cross-attention LM paths (``_cross_lm``): llama-3.2-vision-11b,
+    then seamless-m4t-large-v2, each at full width and depth, random
+    weights from seed 0, bf16 activations, flash on the kernel route.
+    Launch counts are set to 0 just before each path's launcher runs and
+    read just after.  Returns the paths' launch counts."""
+    import torch
+    dev = torch.device("cuda:0")
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[e2e:vlm_encdec] allocated before the phase "
+        f"{torch.cuda.memory_allocated(dev) / 2 ** 30:.3f} GiB")
+    out = _cross_lm(failures, dev, "vlm")
+    out.update(_cross_lm(failures, dev, "encdec"))
+    return out
+
+
 def phase_reference(failures):
     """Each DiT path's engine at smoke size on the card (kernels) and on the
     CPU (plain versions), same weights and noise: equal groups, NFE and
@@ -4540,6 +4812,7 @@ def phase_reference(failures):
                                 f"moved with the cache elsewhere: {errs}")
     _reference_mamba2(failures)
     _reference_dense(failures)
+    _reference_cross(failures)
 
 
 def _reference_mamba2(failures):
@@ -4633,6 +4906,64 @@ def _reference_dense(failures):
     if not ok:
         failures.append(f"reference dense: card vs cpu differ (same={same},"
                         f" err={err:.3e})")
+
+
+def _reference_cross(failures):
+    """The VLM and encdec LMs at their smoke configs in f32 on the card
+    (flash on the kernel route: the 3xTF32 kernel) and on the CPU (its
+    plain version), same weights, seeded non-zero memories:
+    ``shared_prefix_prefill`` over one group (a 40-token prefix, 9-token
+    tails; the memory in the prefill's closure) and a batch-3 prefill with
+    8 greedy decode steps.  Counts and greedy tokens equal, logits within
+    1e-4 of their magnitude (the f32 kernel sweep's bar)."""
+    import numpy as np
+    import torch
+    from repro_torch.config import get_config, replace
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serving.shared_prefill import shared_prefix_prefill
+
+    for seed, arch in enumerate(("llama-3.2-vision-11b",
+                                 "seamless-m4t-large-v2")):
+        cfg = replace(get_config(arch, smoke=True), dtype="float32",
+                      attn_impl="kernel")
+        gpu = tfm.LM(cfg, device="cuda:0", generator=torch.Generator(
+            device="cuda:0").manual_seed(4 + seed))
+        _randomize_zero_init(gpu, torch.Generator(
+            device="cuda:0").manual_seed(5 + seed))
+        cpu = tfm.LM(cfg, device="cpu")
+        cpu.load_state_dict(gpu.state_dict())
+        tokens = next(_group_tokens(np.random.RandomState(1), cfg.vocab, 1,
+                                    3, 40, 9))
+        memory = {k: v.cpu() for k, v in _cross_memory(
+            cfg, 3, 49, torch.device("cuda:0"), seed=6 + seed).items()}
+        out = []
+        for model in (gpu, cpu):
+            ex = {k: v.to(model.device) for k, v in memory.items()}
+            logits, _, _, stats = shared_prefix_prefill(
+                lambda t, m: tfm.prefill(model, t, _first_rows(ex),
+                                         max_len=m),
+                lambda c, t, p: tfm.decode_step(model, c, t, p), tokens, 64)
+            last, cache = tfm.prefill(model, tokens, ex, max_len=64)
+            tok, steps = last.argmax(-1), []
+            for i in range(8):
+                last, cache = tfm.decode_step(model, cache, tok, 49 + i)
+                tok = last.argmax(-1)
+                steps.append(tok)
+            out.append((logits.cpu(), stats, last.cpu(),
+                        torch.cat(steps, 1).cpu()))
+        (lg, st, dl, dt), (lc, sc, dlc, dtc) = out
+        same = st == sc and torch.equal(dt, dtc)
+        err = max((lg - lc).abs().max().item(), (dl - dlc).abs().max().item())
+        top = max(lc.abs().max().item(), dlc.abs().max().item())
+        ok = same and err <= 1e-4 * (1 + top)
+        log(f"[reference:{cfg.family}] smoke {cfg.name} card vs cpu over a "
+            f"seeded memory: counts/tokens {'equal' if same else 'DIFFER'} "
+            f"({st}), logits max_abs_err={err:.3e} tol=1e-4 "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"reference {cfg.family}: card vs cpu differ "
+                            f"(same={same}, err={err:.3e})")
+        del gpu, cpu
 
 
 # the training phase (slice 12): the example's groups (K x N = 4 x 3, one
@@ -5106,6 +5437,10 @@ def main(argv) -> int:
     launches.update(phase_hybrid_moe(failures))
     gc.collect()
     torch.cuda.empty_cache()
+    t5v = time.perf_counter()
+    launches.update(phase_vlm_encdec(failures))
+    gc.collect()
+    torch.cuda.empty_cache()
     t5t = time.perf_counter()
     phase_train(failures)
     gc.collect()
@@ -5120,7 +5455,8 @@ def main(argv) -> int:
     log(f"[time] build {t1 - t0:.1f} s, kernels {t2 - t1:.1f} s, "
         f"e2e DiT {t3 - t2:.1f} s, stream {t4 - t3:.1f} s, example "
         f"{t4e - t4:.1f} s, e2e mamba2 {t5d - t4e:.1f} s, e2e dense "
-        f"{t5h - t5d:.1f} s, e2e hybrid_moe {t5t - t5h:.1f} s, train "
+        f"{t5h - t5d:.1f} s, e2e hybrid_moe {t5v - t5h:.1f} s, e2e "
+        f"vlm_encdec {t5t - t5v:.1f} s, train "
         f"{t5 - t5t:.1f} s, reference "
         f"{t6 - t5:.1f} s, graph nodes {t7 - t6:.1f} s")
     if failures:

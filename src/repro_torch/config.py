@@ -129,6 +129,58 @@ class ModelConfig:
                              f"config says {self.n_layers}")
         return kinds
 
+    def n_params(self) -> int:
+        """Analytic parameter count (embeddings included once), the JAX
+        package's formula."""
+        d, hd = self.d_model, self.hd
+        n_q, n_kv = self.n_heads, self.n_kv_heads
+        mult = 3 if self.mlp_kind == MLP_SWIGLU else 2
+        total = self.vocab * d                      # embed
+        if not self.tie_embeddings:
+            total += self.vocab * d                 # lm head
+        for i, kind in enumerate(self.layer_kinds()):
+            total += 2 * d                          # norms
+            if kind in (MIX_ATTN, MIX_LOCAL_ATTN, MIX_CROSS_ATTN):
+                if self.attn_kind == ATTN_MLA and self.mla is not None:
+                    m = self.mla
+                    qd = m.qk_nope_head_dim + m.qk_rope_head_dim
+                    total += d * n_q * qd
+                    total += d * (m.kv_lora_rank + m.qk_rope_head_dim)
+                    total += m.kv_lora_rank * n_q * (m.qk_nope_head_dim
+                                                     + m.v_head_dim)
+                    total += n_q * m.v_head_dim * d
+                else:
+                    total += d * n_q * hd + 2 * d * n_kv * hd + n_q * hd * d
+                    if self.qkv_bias:
+                        total += (n_q + 2 * n_kv) * hd
+                if kind == MIX_CROSS_ATTN:          # the cross block, lnx
+                    total += (d * n_q * hd + 2 * d * n_kv * hd
+                              + n_q * hd * d + d)
+            elif kind == MIX_RGLRU:
+                w = (self.rglru.lru_width or d) if self.rglru else d
+                total += 2 * d * w + w * d + 3 * w  # gates approx
+            elif kind == MIX_SSM:
+                s = self.ssm or SSMConfig()
+                d_in = s.expand * d
+                total += (d * (2 * d_in + 2 * s.n_groups * s.d_state)
+                          + d_in * d)
+            if self.moe is not None and i >= self.moe.first_moe_layer:
+                m = self.moe
+                total += ((m.n_routed + m.n_shared) * 3 * d * m.d_ff_expert
+                          + d * m.n_routed)
+            else:
+                ff = (self.moe.d_ff_dense if (self.moe and
+                                              self.moe.d_ff_dense)
+                      else self.d_ff)
+                total += mult * d * ff
+        if self.family == "encdec":                 # the encoder stack
+            per = (d * n_q * hd * 2 + 2 * d * n_kv * hd + mult * d
+                   * self.d_ff + 2 * d)
+            total += self.enc_layers * per + self.enc_input_dim * d
+        if self.family == "vlm":
+            total += self.vision_dim * d            # projector
+        return total
+
 
 @dataclass(frozen=True)
 class SageConfig:

@@ -12,8 +12,14 @@ Any ported family serves: ``mamba2-780m`` (SSM states), the dense
 configs (``phi3-mini-3.8b``, ``qwen3-32b``, ``qwen1.5-32b``,
 ``granite-20b``: KV caches of ``prompt_len + gen + 8`` rows), the hybrid
 ``recurrentgemma-2b`` (RG-LRU states and local-attention rings of
-``min(window, prompt_len + gen + 8)`` rows) and the MoE configs
-``deepseek-v2-lite-16b`` (MLA latent caches) and ``kimi-k2-1t-a32b``.
+``min(window, prompt_len + gen + 8)`` rows), the MoE configs
+``deepseek-v2-lite-16b`` (MLA latent caches) and ``kimi-k2-1t-a32b``, the
+VLM ``llama-3.2-vision-11b`` and the encdec ``seamless-m4t-large-v2``
+(cross-attention layers: each cache adds the memory's K/V).  As in the JAX
+launcher, the VLM's image embeddings ``(batch, n_image_tokens,
+vision_dim)`` and encdec's frames ``(batch, 32, enc_input_dim)`` are zeros
+(in shared-prefix mode their first row); with bias-free layers a zero
+memory makes every cross-attention add exactly 0.
 
 The device defaults to CUDA and raises without a GPU.  The weights are
 random, drawn from seed 0, and cast to the activation dtype once; the
@@ -46,6 +52,19 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def launcher_extras(cfg, batch: int) -> Dict[str, np.ndarray]:
+    """The launcher's zero memory inputs: the VLM's ``image_embeds`` and
+    encdec's 32 ``frames`` (none for the other families)."""
+    extras = {}
+    if cfg.family == "vlm":
+        extras["image_embeds"] = np.zeros(
+            (batch, cfg.n_image_tokens, cfg.vision_dim), np.float32)
+    if cfg.family == "encdec":
+        extras["frames"] = np.zeros((batch, 32, cfg.enc_input_dim),
+                                    np.float32)
+    return extras
+
+
 def serve(arch: str = "mamba2-780m", *, smoke: bool = False, batch: int = 4,
           prompt_len: int = 64, gen: int = 32, shared_prefix: bool = False,
           device="cuda", model: Optional[tfm.LM] = None) -> Dict:
@@ -65,17 +84,20 @@ def serve(arch: str = "mamba2-780m", *, smoke: bool = False, batch: int = 4,
     cast = model.cast_weights_()
     rng = np.random.RandomState(0)
     max_len = prompt_len + gen + 8
+    extras = launcher_extras(cfg, batch)
 
     _sync(dev)
     t0 = time.perf_counter()
     if shared_prefix:            # SAGE analogue: one trunk, fork, decode
         prompt = rng.randint(0, cfg.vocab, (1, prompt_len))
-        logits, trunk = tfm.prefill(model, prompt, max_len=max_len)
+        logits, trunk = tfm.prefill(model, prompt,
+                                    {k: v[:1] for k, v in extras.items()},
+                                    max_len=max_len)
         cache = fork_model_cache(trunk, batch)
         steps_cost = prompt_len + batch * gen
     else:
         prompts = rng.randint(0, cfg.vocab, (batch, prompt_len))
-        logits, cache = tfm.prefill(model, prompts, max_len=max_len)
+        logits, cache = tfm.prefill(model, prompts, extras, max_len=max_len)
         steps_cost = batch * (prompt_len + gen)
     _sync(dev)
     t_prefill = time.perf_counter() - t0

@@ -10,18 +10,27 @@ keeps the JAX structure ``{"prefix", "blocks", "suffix"}`` with every
 Public API (the model stands in for ``(params, cfg)``)
 ------------------------------------------------------
 LM(cfg, device=, generator=)                        -> model  (init_params)
-forward_train(model, tokens, remat=)                -> (logits (B,S,V), aux)
+forward_train(model, tokens, extras=, remat=)       -> (logits (B,S,V), aux)
 lm_loss(model, batch, remat=)                       -> scalar loss
+encode(model, frames, remat=)                       -> encoder memory
 init_cache(model, batch, max_len, dtype=, window=)  -> zero cache
-prefill(model, tokens, max_len=, window=)           -> (last_logits, cache)
+prefill(model, tokens, extras=, max_len=, window=)  -> (last_logits, cache)
 decode_step(model, cache, token, pos, ring=, out=)  -> (logits, cache)
 
-Ported: the ``dense`` family (GQA ``attn`` layers with a dense SwiGLU or
-GELU MLP), ``ssm`` layers (mamba2), the ``hybrid`` (RG-LRU and local
-attention super-blocks with an unrolled remainder: recurrentgemma) and
-``moe`` (a prefix of dense layers, then layers with a routed MLP; GQA or
-MLA attention: deepseek-v2-lite, kimi-k2).  The VLM and encdec families
-raise ``NotImplementedError``.
+Every LM family of the JAX package: ``dense`` (GQA ``attn`` layers with a
+dense SwiGLU or GELU MLP), ``ssm`` layers (mamba2), the ``hybrid`` (RG-LRU
+and local attention super-blocks with an unrolled remainder:
+recurrentgemma), ``moe`` (a prefix of dense layers, then layers with a
+routed MLP; GQA or MLA attention: deepseek-v2-lite, kimi-k2), the ``vlm``
+(``(attn x4, cross_attn)`` super-blocks attending to projected image
+embeddings, ``extras["image_embeds"]``: llama-3.2-vision) and ``encdec``
+(a bidirectional encoder over ``extras["frames"]``, then ``cross_attn``
+decoder layers: seamless-m4t).  A ``cross_attn`` layer is a GQA
+self-attention layer followed by ``lnx`` and a cross-attention block
+``xattn`` to the memory; its cache is ``{"self": <GQA cache>, "cross":
+{"k", "v"}}``, the memory's K/V computed once in the prefill, which a
+decode step reads and passes on untouched.  The ``dit`` family is not an
+LM and raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -32,44 +41,50 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
-from repro_torch.config import (MIX_ATTN, MIX_LOCAL_ATTN, MIX_RGLRU,
-                                MIX_SSM, ModelConfig)
+from repro_torch.config import (MIX_ATTN, MIX_CROSS_ATTN, MIX_LOCAL_ATTN,
+                                MIX_RGLRU, MIX_SSM, ModelConfig)
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import rglru as rglru_lib
-from repro_torch.models.layers import (apply_mlp, cast, cast_weights_, dot,
-                                      init_mlp, named_casts, rms_norm)
+from repro_torch.models.layers import (apply_mlp, cast, cast_weights_,
+                                      dense_init, dot, init_mlp, named_casts,
+                                      rms_norm)
 from repro_torch.models.ssm import Mamba2Mixer
 
 Cache = Dict[str, Any]
 #: the parameters the LM reads in its activation dtype: the embedding (the
-#: tied head) and head, the attention (GQA and MLA) and MLP matrices and
-#: biases (the MoE experts' stacked ones too), the SSM and RG-LRU
-#: projections (the norms, the convs, the SSM's dt/A, the RG-LRU's gate
+#: tied head) and head, the attention (GQA, cross and MLA) and MLP matrices
+#: and biases (the MoE experts' stacked ones too), the SSM and RG-LRU
+#: projections, the VLM's image projector and the encoder's input
+#: projection (the norms, the convs, the SSM's dt/A, the RG-LRU's gate
 #: biases and Lambda, and the router run in f32)
 CAST = ("embed", "head", "wq", "wk", "wv", "wo", "bq", "bk", "bv", "wi",
         "wg", "z_proj", "x_proj", "bc_proj", "dt_proj", "out_proj", "D",
-        "wdkv", "wukv", "wx", "wa", "out")
+        "wdkv", "wukv", "wx", "wa", "out", "proj", "enc_in")
 
-_NOT_PORTED = ("not ported yet: ROADMAP.md §1, item 4 (the rest of the "
-               "LLM substrate, in order: the VLM's cross-attention, "
-               "encdec)")
-_PORTED_FAMILIES = ("dense", "ssm", "hybrid", "moe")
-#: the mixers that keep an attention cache (GQA or MLA)
-_ATTN_MIXERS = (MIX_ATTN, MIX_LOCAL_ATTN)
+_NOT_AN_LM = ("is not an LM family: the DiT is models/dit.py (ROADMAP.md "
+              "§1 lists the ported modules)")
+_LM_FAMILIES = ("dense", "ssm", "hybrid", "moe", "vlm", "encdec")
+#: the mixers that keep an attention cache (GQA or MLA; a cross-attention
+#: layer's self-attention too)
+_ATTN_MIXERS = (MIX_ATTN, MIX_LOCAL_ATTN, MIX_CROSS_ATTN)
+#: the memory length of an encdec decode-only zero cache (``init_cache``)
+_ENC_LEN = 4096
 
 
 def plan(cfg: ModelConfig) -> Tuple[Tuple[str, ...], Tuple[str, ...], int,
                                     Tuple[str, ...]]:
     """How layers are grouped into (prefix, scanned block, n_blocks,
-    suffix): the JAX package's ``plan`` for the families ported so far;
-    every other family raises here."""
-    if cfg.family not in _PORTED_FAMILIES:
-        raise NotImplementedError(f"family {cfg.family!r} {_NOT_PORTED}")
+    suffix): the JAX package's ``plan``; a family that is not an LM raises
+    here."""
+    if cfg.family not in _LM_FAMILIES:
+        raise NotImplementedError(f"family {cfg.family!r} {_NOT_AN_LM}")
     kinds = cfg.layer_kinds()
     if cfg.family == "moe":
         f = cfg.moe.first_moe_layer
         return kinds[:f], (MIX_ATTN,), cfg.n_layers - f, ()
+    if cfg.family == "encdec":
+        return (), (MIX_CROSS_ATTN,), cfg.n_layers, ()
     if cfg.pattern:
         n_blocks = (cfg.n_layers - len(cfg.remainder)) // len(cfg.pattern)
         return (), tuple(cfg.pattern), n_blocks, tuple(cfg.remainder)
@@ -88,15 +103,18 @@ def _mlp_kind(cfg: ModelConfig, in_scan: bool) -> str:
 
 def uses_pos(cfg: ModelConfig) -> bool:
     """Whether a decode step reads its position: any layer that keeps an
-    attention cache does (GQA, local or MLA)."""
+    attention cache does (GQA, local, MLA, or a cross-attention layer's
+    self-attention)."""
     prefix, block, _, suffix = plan(cfg)
     return any(k in _ATTN_MIXERS for k in prefix + block + suffix)
 
 
 class Layer(nn.Module):
     """One residual layer (``init_layer``): ``ln1`` and its mixer
-    (``mix``: GQA or MLA attention, the SSM, the RG-LRU), then ``ln2`` and
-    a dense ``mlp`` or a routed ``moe`` unless the MLP kind is ``none``."""
+    (``mix``: GQA or MLA attention, the SSM, the RG-LRU), for a
+    ``cross_attn`` layer then ``lnx`` and the GQA cross-attention block
+    ``xattn``, then ``ln2`` and a dense ``mlp`` or a routed ``moe`` unless
+    the MLP kind is ``none``."""
 
     def __init__(self, cfg: ModelConfig, kind: str, mlpk: str, *, device,
                  generator):
@@ -108,12 +126,15 @@ class Layer(nn.Module):
         if kind in _ATTN_MIXERS:
             self.mix = (attn.init_mla(cfg, **kw) if cfg.attn_kind == "mla"
                         else attn.init_gqa(cfg, **kw))
+            if kind == MIX_CROSS_ATTN:
+                self.lnx = nn.Parameter(torch.zeros(d, device=device))
+                self.xattn = attn.init_gqa(cfg, **kw)
         elif kind == MIX_SSM:
             self.mix = Mamba2Mixer(cfg, **kw)
         elif kind == MIX_RGLRU:
             self.mix = rglru_lib.init_rglru(cfg, **kw)
         else:
-            raise NotImplementedError(f"mixer {kind!r} {_NOT_PORTED}")
+            raise ValueError(f"unknown mixer {kind!r}")
         if mlpk == "dense":
             ff = (cfg.moe.d_ff_dense if (cfg.moe and cfg.moe.d_ff_dense)
                   else cfg.d_ff)
@@ -127,14 +148,24 @@ class Layer(nn.Module):
 
     def init_cache(self, cfg: ModelConfig, batch: int, max_len: int, dtype,
                    window: int = 0) -> Cache:
-        """``init_layer_cache``: this layer's zero cache."""
+        """``init_layer_cache``: this layer's zero cache.  A
+        ``cross_attn`` layer's memory K/V hold ``n_image_tokens`` rows (the
+        VLM) or ``_ENC_LEN`` (encdec)."""
         dev = self.ln1.device
-        if self.kind == MIX_ATTN:
+        if self.kind in (MIX_ATTN, MIX_CROSS_ATTN):
             if cfg.attn_kind == "mla":
-                return attn.mla_cache_init(cfg, batch, window or max_len,
-                                           dtype, dev)
-            return attn.gqa_cache_init(cfg, batch, window or max_len, dtype,
-                                       dev)
+                c = attn.mla_cache_init(cfg, batch, window or max_len,
+                                        dtype, dev)
+            else:
+                c = attn.gqa_cache_init(cfg, batch, window or max_len,
+                                        dtype, dev)
+            if self.kind == MIX_CROSS_ATTN:
+                n_mem = (cfg.n_image_tokens if cfg.family == "vlm"
+                         else _ENC_LEN)
+                c = {"self": c,
+                     "cross": attn.gqa_cache_init(cfg, batch, n_mem, dtype,
+                                                  dev)}
+            return c
         if self.kind == MIX_LOCAL_ATTN:
             return attn.gqa_cache_init(cfg, batch, min(cfg.window, max_len),
                                        dtype, dev)
@@ -144,19 +175,26 @@ class Layer(nn.Module):
 
 
 def apply_layer(layer: Layer, cfg: ModelConfig, x: torch.Tensor, *,
-                mode: str, cache=None, pos=None, window: int = 0,
-                ring: bool = False, max_len: int = 0,
+                mode: str, cache=None, pos=None, memory=None,
+                window: int = 0, ring: bool = False, max_len: int = 0,
                 out=None) -> Tuple[torch.Tensor, Any, Optional[torch.Tensor]]:
     """``mode`` "train" | "prefill" | "decode" -> (x, new_cache, aux), the
     new cache None in train, aux the router's load-balance loss of an MoE
     layer (None for the others).  A local-attention layer attends within
     ``cfg.window`` whatever the call's ``window``, and its decode is always
-    a ring.  In decode, ``out`` (optional) holds the tensors the new cache
-    is written into."""
+    a ring.  A cross-attention layer attends to ``memory`` (train,
+    prefill) or to its cache's ``cross`` K/V (decode).  In decode, ``out``
+    (optional) holds the tensors the new cache is written into."""
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"unknown mode {mode!r}")
     h = rms_norm(x, layer.ln1, cfg.rms_eps)
     new_cache = aux = None
+    cross = layer.kind == MIX_CROSS_ATTN
+    if cross and mode == "decode":
+        cache, xkv = cache["self"], cache["cross"]
+        if out is not None:
+            out, xout = out["self"], out["cross"]
+            xkv = {k: attn._into(xout[k], v) for k, v in xkv.items()}
     if layer.kind in _ATTN_MIXERS:
         w = cfg.window if layer.kind == MIX_LOCAL_ATTN else window
         mla = cfg.attn_kind == "mla"
@@ -199,6 +237,18 @@ def apply_layer(layer: Layer, cfg: ModelConfig, x: torch.Tensor, *,
         else:
             a, new_cache = layer.mix.ssm_decode(h, cache, out=out)
     x = x + a
+    if cross:
+        hx = rms_norm(x, layer.lnx, cfg.rms_eps)
+        if mode == "decode":
+            x = x + attn.gqa_cross_decode(layer.xattn, cfg, hx, xkv)
+            new_cache = {"self": new_cache, "cross": xkv}
+        else:
+            x = x + attn.gqa_full(layer.xattn, cfg, hx, causal=False,
+                                  memory=memory)
+            if mode == "prefill":
+                new_cache = {"self": new_cache,
+                             "cross": attn.gqa_cross_cache(layer.xattn, cfg,
+                                                           memory)}
     if layer.mlpk == "dense":
         x = x + apply_mlp(layer.mlp, rms_norm(x, layer.ln2, cfg.rms_eps),
                           cfg.mlp_kind)
@@ -213,7 +263,9 @@ class LM(nn.Module):
     """The language model (``init_params``'s tree as modules): ``embed``,
     ``ln_f``, ``prefix`` / ``suffix`` layer lists, ``blocks`` (one
     ``ModuleDict`` of ``l{j}`` layers per scanned block) and ``head`` when
-    the embeddings are not tied.  Weights are f32; activations run in
+    the embeddings are not tied; the VLM's image projector ``proj``; the
+    encdec encoder's ``enc_in``, ``enc_blocks`` (one ``{"l0": <dense GQA
+    layer>}`` a layer) and ``enc_ln``.  Weights are f32; activations run in
     ``cfg.dtype``.  ``device`` defaults to CUDA and raises without a GPU."""
 
     def __init__(self, cfg: ModelConfig, *, device="cuda",
@@ -240,6 +292,14 @@ class LM(nn.Module):
             for _ in range(n_blocks))
         self.suffix = nn.ModuleList(
             Layer(cfg, k, outer, **kw) for k in suffix)
+        if cfg.family == "vlm":
+            self.proj = nn.Parameter(dense_init(cfg.vision_dim, d, **kw))
+        if cfg.family == "encdec":
+            self.enc_in = nn.Parameter(dense_init(cfg.enc_input_dim, d, **kw))
+            self.enc_blocks = nn.ModuleList(
+                nn.ModuleDict({"l0": Layer(cfg, MIX_ATTN, "dense", **kw)})
+                for _ in range(cfg.enc_layers))
+            self.enc_ln = nn.Parameter(torch.zeros(d, device=device))
         # the weights cast_weights_ casts, found once
         self._cast = tuple(named_casts(self, CAST))
 
@@ -280,6 +340,15 @@ def _map(fn, tree: Any) -> Any:
     return fn(tree)
 
 
+def _fresh(tree: Any) -> Any:
+    """New tensors shaped as ``tree``'s, but for its ``cross`` subtrees
+    (memory K/V, which a decode step only reads): those are ``tree``'s
+    own."""
+    if isinstance(tree, dict):
+        return {k: v if k == "cross" else _fresh(v) for k, v in tree.items()}
+    return torch.empty_like(tree)
+
+
 def _unbind(tree: Any, n: int) -> List[Any]:
     """The n per-layer views of a tree stacked along axis 0."""
     if isinstance(tree, dict):
@@ -288,37 +357,83 @@ def _unbind(tree: Any, n: int) -> List[Any]:
     return list(tree.unbind(0))
 
 
-def _block(bm: nn.ModuleDict, cfg: ModelConfig,
-           x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def _block(bm: nn.ModuleDict, cfg: ModelConfig, x: torch.Tensor,
+           memory: Optional[torch.Tensor] = None
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
     aux = torch.zeros((), device=x.device)
     for layer in bm.values():
-        x, _, a = apply_layer(layer, cfg, x, mode="train")
+        x, _, a = apply_layer(layer, cfg, x, mode="train", memory=memory)
         if a is not None:
             aux = aux + a
     return x, aux
 
 
-def forward_train(model: LM, tokens, remat: bool = False
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+def _activations(model: LM, x) -> torch.Tensor:
+    """An extras array (numpy or tensor) on the model's device, in its
+    activation dtype."""
+    return torch.as_tensor(x, device=model.device).to(
+        getattr(torch, model.cfg.dtype))
+
+
+def encode(model: LM, frames, remat: bool = False) -> torch.Tensor:
+    """The encdec encoder: frames (B, T, enc_input_dim) -> memory (B, T,
+    d_model), bidirectional self-attention with RoPE (through the kernel
+    dispatch, non-causal) and a dense MLP a layer, then ``enc_ln``.
+    ``remat`` recomputes each layer in the backward."""
+    cfg = model.cfg
+    x = dot(_activations(model, frames), model.enc_in)
+    for bm in model.enc_blocks:
+        if remat and torch.is_grad_enabled():
+            x = checkpoint(_enc_layer, bm["l0"], cfg, x, use_reentrant=False)
+        else:
+            x = _enc_layer(bm["l0"], cfg, x)
+    return rms_norm(x, model.enc_ln, cfg.rms_eps)
+
+
+def _enc_layer(layer: Layer, cfg: ModelConfig,
+               x: torch.Tensor) -> torch.Tensor:
+    h = rms_norm(x, layer.ln1, cfg.rms_eps)
+    x = x + attn.gqa_full(layer.mix, cfg, h, causal=False)
+    return x + apply_mlp(layer.mlp, rms_norm(x, layer.ln2, cfg.rms_eps),
+                         cfg.mlp_kind)
+
+
+def _memory(model: LM, extras: Optional[Dict[str, Any]],
+            remat: bool = False) -> Optional[torch.Tensor]:
+    """What the cross-attention layers attend to: the projected image
+    embeddings (VLM), the encoder's output (encdec), else None."""
+    if model.cfg.family == "vlm":
+        return dot(_activations(model, extras["image_embeds"]), model.proj)
+    if model.cfg.family == "encdec":
+        return encode(model, extras["frames"], remat)
+    return None
+
+
+def forward_train(model: LM, tokens, extras: Optional[Dict[str, Any]] = None,
+                  remat: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens (B,S) -> (logits (B,S,V), aux).  Differentiable; ``remat``
-    recomputes each scanned block in the backward (``jax.checkpoint`` of
-    the scan body).  ``aux`` is the sum of the MoE layers' router
-    load-balance losses (0 without MoE layers)."""
+    recomputes each scanned block (and encoder layer) in the backward
+    (``jax.checkpoint`` of the scan body).  ``extras`` holds the VLM's
+    ``image_embeds`` (B, n_image_tokens, vision_dim) or encdec's
+    ``frames`` (B, T, enc_input_dim).  ``aux`` is the sum of the MoE
+    layers' router load-balance losses (0 without MoE layers)."""
     cfg = model.cfg
     x = model.embed_tokens(tokens)
+    memory = _memory(model, extras, remat)
     aux = torch.zeros((), device=x.device)
     for layer in model.prefix:
-        x, _, a = apply_layer(layer, cfg, x, mode="train")
+        x, _, a = apply_layer(layer, cfg, x, mode="train", memory=memory)
         if a is not None:
             aux = aux + a
     for bm in model.blocks:
         if remat and torch.is_grad_enabled():
-            x, a = checkpoint(_block, bm, cfg, x, use_reentrant=False)
+            x, a = checkpoint(_block, bm, cfg, x, memory,
+                              use_reentrant=False)
         else:
-            x, a = _block(bm, cfg, x)
+            x, a = _block(bm, cfg, x, memory)
         aux = aux + a
     for layer in model.suffix:
-        x, _, a = apply_layer(layer, cfg, x, mode="train")
+        x, _, a = apply_layer(layer, cfg, x, mode="train", memory=memory)
         if a is not None:
             aux = aux + a
     return model.logits(x), aux
@@ -327,8 +442,12 @@ def forward_train(model: LM, tokens, remat: bool = False
 def lm_loss(model: LM, batch: Dict[str, Any], remat: bool = False
             ) -> torch.Tensor:
     """Mean next-token cross-entropy of ``batch["tokens"]`` against
-    ``batch["labels"]`` (logits in f32), plus the aux loss."""
-    logits, aux = forward_train(model, batch["tokens"], remat=remat)
+    ``batch["labels"]`` (logits in f32), plus the aux loss; every other
+    key of ``batch`` is passed to ``forward_train`` as an extra."""
+    logits, aux = forward_train(
+        model, batch["tokens"],
+        extras={k: v for k, v in batch.items()
+                if k not in ("tokens", "labels")}, remat=remat)
     logits = logits.float()
     labels = torch.as_tensor(batch["labels"], dtype=torch.long,
                              device=logits.device)
@@ -356,16 +475,19 @@ def init_cache(model: LM, batch: int, max_len: int,
 
 
 @torch.no_grad()
-def prefill(model: LM, tokens, max_len: int = 0, window: int = 0
+def prefill(model: LM, tokens, extras: Optional[Dict[str, Any]] = None,
+            max_len: int = 0, window: int = 0
             ) -> Tuple[torch.Tensor, Cache]:
     """Run the prompt (B,S), build the cache; returns last-position
-    logits (B,1,V).  ``max_len`` (default S) sizes attention caches;
-    ``window`` caps them at the window, in the ring layout when the prompt
-    fills it."""
+    logits (B,1,V).  ``extras`` as in ``forward_train``: the memory's
+    cross K/V go into the cache.  ``max_len`` (default S) sizes attention
+    caches; ``window`` caps them at the window, in the ring layout when
+    the prompt fills it."""
     cfg = model.cfg
     x = model.embed_tokens(tokens)
     max_len = max_len or x.shape[1]
-    kw = dict(mode="prefill", max_len=max_len, window=window)
+    kw = dict(mode="prefill", max_len=max_len, window=window,
+              memory=_memory(model, extras))
     caches: Cache = {"prefix": [], "suffix": []}
     for layer in model.prefix:
         x, c, _ = apply_layer(layer, cfg, x, **kw)
@@ -393,16 +515,19 @@ def decode_step(model: LM, cache: Cache, token, pos=None, ring: bool = False,
     same structure and shapes; ``out`` may be ``cache`` itself, updated in
     place, which only a cache that nothing else reads may be), else into
     new ones, and ``cache`` is left as it is (forked caches may share
-    it)."""
+    it).  A cross-attention layer's memory K/V are read, never written:
+    the new cache holds ``cache``'s own (or ``out``'s, holding the same
+    values)."""
     cfg = model.cfg
     x = model.embed_tokens(token)
     kw = dict(mode="decode", pos=pos, ring=ring)
     n = len(model.blocks)
     if out is None:
         # each layer writes its new cache into its slot of freshly allocated
-        # stacked leaves: nothing is re-stacked per step
+        # stacked leaves: nothing is re-stacked per step, and the memory
+        # K/V are passed on as they are
         out = {"prefix": [None] * len(model.prefix),
-               "blocks": _map(torch.empty_like, cache["blocks"]),
+               "blocks": _fresh(cache["blocks"]),
                "suffix": [None] * len(model.suffix)}
     new: Cache = {"prefix": [], "blocks": out["blocks"], "suffix": []}
     for layer, c, o in zip(model.prefix, cache["prefix"], out["prefix"]):

@@ -7,8 +7,9 @@ The JAX package keeps parameters as nested dicts (``dit.init_params``,
 
 * nested dict keys and list indices become dotted module paths
   (``blocks.attn.wq``, ``prefix.0.ln1`` ...);
-* the stacked leading ``blocks`` axis that ``jax.vmap(init_block)`` builds
-  is split into one entry per ``nn.ModuleList`` layer;
+* the stacked leading axis that ``jax.vmap`` builds (an LM's or a DiT's
+  ``blocks``, an encoder's ``enc_blocks``) is split into one entry per
+  ``nn.ModuleList`` layer;
 * VAE conv weights go from HWIO to OIHW for ``F.conv2d``;
 * a LoRA tree (``core.lora.init_lora``'s ``fold_in`` draws) crosses as it
   is, keyed by the JAX ``keystr`` of each adapted leaf;
@@ -47,13 +48,20 @@ def _flatten(tree: Mapping, prefix: str = ""
             yield f"{prefix}{k}", np.asarray(v)
 
 
+#: the top-level subtrees whose leaves ``jax.vmap`` stacks over layers
+_STACKED = ("blocks", "enc_blocks")
+
+
 def _unstack_blocks(flat: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """``flat`` with each leaf of a stacked subtree (``_STACKED``) split
+    along its leading layer axis: ``blocks.l0.wq`` of shape (n, ...) ->
+    ``blocks.{i}.l0.wq``."""
     out = {}
     for name, arr in flat.items():
-        if name.startswith("blocks."):
-            rest = name[len("blocks."):]
+        top, _, rest = name.partition(".")
+        if top in _STACKED and rest:
             for i in range(arr.shape[0]):
-                out[f"blocks.{i}.{rest}"] = arr[i]
+                out[f"{top}.{i}.{rest}"] = arr[i]
         else:
             out[name] = arr
     return out
@@ -165,8 +173,10 @@ def lm_from_jax(params: Mapping, cfg: ModelConfig, *, device="cuda") -> LM:
     ``wq`` / ``wdkv`` / ``kv_norm`` / ``wukv`` / ``wo``, the SSM's or the
     RG-LRU's; ``ln2`` and ``mlp.wi`` / ``wg`` / ``wo`` for a dense MLP, or
     ``moe.router``, the per-expert stacks ``moe.wi`` / ``wg`` / ``wo`` and
-    ``moe.shared.*`` for a routed one), and ``head`` unless the embeddings
-    are tied."""
+    ``moe.shared.*`` for a routed one; a ``cross_attn`` layer's ``lnx`` and
+    ``xattn.*``), ``head`` unless the embeddings are tied, the VLM's
+    ``proj``, and the encdec encoder's ``enc_in``, ``enc_ln`` and stacked
+    ``enc_blocks`` split per layer (``enc_blocks.{i}.l0.*``)."""
     model = LM(cfg, device=device)
     load_numpy(model, _unstack_blocks(dict(_flatten(params))))
     return model

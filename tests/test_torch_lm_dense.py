@@ -235,9 +235,9 @@ def test_bf16_prefill_decode_consistency_and_jax(lm):
     ("vlm", {"pattern": ("attn",) * 4 + ("cross_attn",)}),
     ("encdec", {})])
 def test_unported_families_still_raise(family, extra):
-    """The VLM and encdec families are still refused, naming the queue;
-    the hybrid and MoE families, ported since, build and serve one decode
-    step on the CPU."""
+    """The families ported since the dense slice (the hybrid, MoE, the VLM
+    and encdec) build, prefill (the VLM over image embeddings, encdec over
+    frames) and serve one decode step on the CPU; none raises any more."""
     n = len(extra.get("pattern", ())) or 2
     if family == "moe":
         extra = {"moe": MoEConfig(n_routed=4, top_k=2, d_ff_expert=32,
@@ -245,15 +245,19 @@ def test_unported_families_still_raise(family, extra):
                                   d_ff_dense=128)}
     if family == "hybrid":
         extra = dict(extra, rglru=RGLRUConfig(lru_width=64), window=8)
+    if family == "vlm":
+        extra = dict(extra, n_image_tokens=3, vision_dim=16)
+    if family == "encdec":
+        extra = dict(extra, enc_layers=1, enc_input_dim=16)
     cfg = ModelConfig(name=f"{family}-test", family=family, n_layers=n,
                       d_model=64, n_heads=2, n_kv_heads=2, d_ff=128,
                       vocab=32, **extra)
-    if family in ("vlm", "encdec"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tfm.LM(cfg, device="cpu")
-        return
+    extras = ({"image_embeds": np.ones((1, 3, 16), np.float32)}
+              if family == "vlm" else
+              {"frames": np.ones((1, 5, 16), np.float32)}
+              if family == "encdec" else None)
     model = tfm.LM(cfg, device="cpu")
-    _, cache = tfm.prefill(model, np.arange(6)[None] % cfg.vocab,
+    _, cache = tfm.prefill(model, np.arange(6)[None] % cfg.vocab, extras,
                            max_len=10)
     logits, cache = tfm.decode_step(model, cache, np.array([[3]]), 6)
     assert logits.shape == (1, 1, cfg.vocab)
