@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--parent DIR]
 
-Run from the root of a checkout.  Ten phases; any failure exits non-zero
+Run from the root of a checkout.  Eleven phases; any failure exits non-zero
 without the result line:
 
 1. build — compile the CUDA kernels under ``src/repro_torch/csrc`` with
@@ -190,6 +190,20 @@ without the result line:
    and trained leaves within ``TRAIN_METRIC_RTOL`` / ``TRAIN_PARAM_ATOL``),
    no kernel launched, and ``repro_torch.examples.train_sage --steps 20``
    at ``sage-dit-100m`` in a child process whose checkpoint is restored;
+5f. lm_train — LM training (``phase_lm_train``) through
+   ``repro_torch.launch.train`` at the JAX launcher's defaults (AdamW, lr
+   3e-4, batch 8 x 128; a warm step, then three measured): ``mamba2-780m``
+   at full width and depth (the SSM layers' plain scan under autograd)
+   and ``phi3-mini-3.8b`` at full width cut to 8 of its 32 layers, each
+   with its step walls beside the FLOP floor (6 N a token at the bf16
+   peak) and the AdamW update's byte floor, peak memory, its checkpoint
+   restored bitwise and one more step traced; no kernel may launch.  Then the smoke
+   configs in f32 card vs CPU (losses and gnorms within 1e-4), the
+   quickstart (``repro_torch.examples.quickstart``) as a user runs it and
+   in f32 on the plain and the kernel routes (equal groups and NFE,
+   latents within 1e-3, flash and ``ddim_step`` launched by the kernel
+   run only), and the metrics (``fd_r``, ``clip_proxy``,
+   ``group_diversity``) card vs CPU within 1e-5;
 6. reference — each path at smoke size on the card against the plain CPU
    path: equal groups, NFE, launches and token-step counts, images and
    logits within tolerance; the stream traces the same way (equal
@@ -5373,6 +5387,210 @@ def phase_train(failures):
     _train_example(failures)
 
 
+# LM training (``phase_lm_train``): the JAX launcher's defaults, AdamW at
+# lr 3e-4, batch 8 x seq 128, a warm step then three measured ones
+LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_STEPS = 8, 128, 4
+# phi3-mini at full width cut to 8 of its 32 layers: at its 3.82e9
+# parameters the functional AdamW's peak (p, g, m, v, m', v', the updates
+# and p': ~32 B a parameter) would need ~122 GB of the card's 80
+LM_TRAIN_RUNS = (("mamba2-780m", None), ("phi3-mini-3.8b", 8))
+# the bytes an AdamW update must move a parameter: read p, g, m, v and
+# write p, m, v, each f32
+ADAMW_BYTES_PER_PARAM = 28
+# card vs CPU at smoke size in f32, relative; quickstart latents, kernel
+# routes against the plain ones (the end-to-end latent bar); metrics
+LM_TRAIN_REF_RTOL, QUICKSTART_TOL, METRIC_RTOL = 1e-4, 1e-3, 1e-5
+
+
+def _lm_train_full(failures, arch, n_layers, dev):
+    """One full-width training run through ``launch.train.train``: its
+    step walls beside the FLOP floor (6 N a token at the bf16 peak) and
+    the AdamW update's byte floor, peak memory, its checkpoint saved and
+    restored bitwise, and one more step under the profiler."""
+    import tempfile
+    import torch
+    from repro_torch import tree as tu
+    from repro_torch.checkpoint import restore_checkpoint
+    from repro_torch.config import get_config, replace
+    from repro_torch.launch import train as ltrain
+    cfg = get_config(arch)
+    if n_layers:
+        cfg = replace(cfg, n_layers=n_layers)
+    label = f"lm_train:{arch}" + (f":{n_layers}L" if n_layers else "")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = ltrain.train(cfg, steps=LM_TRAIN_STEPS, batch=LM_TRAIN_BATCH,
+                           seq=LM_TRAIN_SEQ, lr=3e-4, optim="adamw",
+                           ckpt=tmp, device=dev, seed=90,
+                           log=lambda m: log(f"[{label}] {m}"))
+        peak = torch.cuda.max_memory_allocated()
+        params = out["params"]
+        t0 = time.perf_counter()
+        restored = restore_checkpoint(tmp, LM_TRAIN_STEPS, params)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        size = sum(f.stat().st_size for f in Path(out["path"]).iterdir())
+    bitwise = all(a.dtype == b.dtype and torch.equal(a, b) for a, b in
+                  zip(tu.leaves(restored), tu.leaves(params)))
+    del restored
+    # one more step, traced: device time by kernel and the busy share
+    _profile(label, lambda: ltrain.train(
+        cfg, steps=1, batch=LM_TRAIN_BATCH, seq=LM_TRAIN_SEQ, lr=3e-4,
+        device=dev, params=params, log=lambda m: None))
+    del params
+    n = out["n_params"]
+    tokens = LM_TRAIN_BATCH * LM_TRAIN_SEQ
+    flop_ms = 6 * n * tokens / PEAK_FLOPS["bfloat16"] * 1e3
+    byte_ms = ADAMW_BYTES_PER_PARAM * n / HBM_BYTES_PER_S * 1e3
+    steady = out["walls"][1:]
+    step_ms = sum(steady) / len(steady) * 1e3
+    finite = all(math.isfinite(x) for x in out["losses"] + out["gnorms"])
+    walls = [round(w * 1e3, 3) for w in out["walls"]]
+    log(f"[{label}] {cfg.n_layers} layers, d_model {cfg.d_model}, vocab "
+        f"{cfg.vocab}, {n} parameters, batch {LM_TRAIN_BATCH} x "
+        f"{LM_TRAIN_SEQ}; step walls ms {walls} (steps 2+: "
+        f"{step_ms:.3f} ms); peak "
+        f"{peak / 2**30:.3f} GiB (max_memory_allocated); FLOP floor "
+        f"{flop_ms:.3f} ms (6 N x {tokens} tokens at "
+        f"{PEAK_FLOPS['bfloat16'] / 1e12:.0f} TFLOP/s), AdamW byte floor "
+        f"{byte_ms:.3f} ms ({ADAMW_BYTES_PER_PARAM} B a parameter at "
+        f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s), wall / larger floor "
+        f"{step_ms / max(flop_ms, byte_ms):.2f}; losses "
+        f"{[round(x, 5) for x in out['losses']]}, gnorms "
+        f"{[round(x, 4) for x in out['gnorms']]}; {_SMI}")
+    log(f"[{label}:checkpoint] {size / 2**30:.3f} GiB saved, restored in "
+        f"{restore_s:.2f} s, bitwise {bitwise}")
+    if not finite or not bitwise:
+        failures.append(f"{label}: finite {finite}, checkpoint bitwise "
+                        f"{bitwise}")
+
+
+def _lm_train_reference(failures, dev):
+    """Smoke size in f32: the same initial weights (drawn on the CPU) and
+    batches on the card and on the CPU, three steps each; every loss and
+    gnorm within ``LM_TRAIN_REF_RTOL``."""
+    import torch
+    from repro_torch.config import get_config, replace
+    from repro_torch.launch import train as ltrain
+    cpu = torch.device("cpu")
+    for arch, optim in (("mamba2-780m", "adamw"), ("phi3-mini-3.8b", "adamw"),
+                        ("deepseek-v2-lite-16b", "adafactor")):
+        cfg = replace(get_config(arch, smoke=True), dtype="float32")
+        params = ltrain.init_params(cfg, cpu, seed=91)
+        runs = [ltrain.train(cfg, steps=3, batch=2, seq=16, optim=optim,
+                             device=d, params=params, log=lambda m: None)
+                for d in (dev, cpu)]
+        card, host = runs
+        err = max(abs(a - b) / abs(b) for k in ("losses", "gnorms")
+                  for a, b in zip(card[k], host[k]))
+        log(f"[lm_train:reference] {arch} smoke f32 {optim}, card vs CPU, 3 "
+            f"steps: losses card {[round(x, 6) for x in card['losses']]}, "
+            f"max rel err of losses and gnorms {err:.3e} (bar "
+            f"{LM_TRAIN_REF_RTOL:g})")
+        if not err <= LM_TRAIN_REF_RTOL:
+            failures.append(f"lm_train reference {arch}: {err}")
+
+
+def _quickstart(failures, dev):
+    """The quickstart on the card: as a user runs it (bf16, the default
+    routes), then in f32 on the default routes and on the kernel routes
+    (flash, the fused DDIM step) with the same draws.  Groups and NFE
+    equal in all three; the kernel run's latents within
+    ``QUICKSTART_TOL`` of the plain run's; flash and ``ddim_step``
+    launched by the kernel run only.  Returns its launches."""
+    import torch
+    from repro_torch.config import get_config, replace
+    from repro_torch.examples import quickstart
+    counters = _counters()
+    f32 = replace(get_config("sage-dit", smoke=True), dtype="float32")
+    runs, launched = [], []
+    for cfg, kw in ((None, {}), (f32, {}),
+                    (f32, dict(attn_impl="kernel", step_impl="fused"))):
+        _reset_counts(counters)
+        # the example's lines once, as a user's run prints them
+        say = (lambda m: log(f"[quickstart] {m}")) if not runs else None
+        runs.append(quickstart.run(cfg, device=dev, seed=92,
+                                   log=say or (lambda m: None), **kw))
+        torch.cuda.synchronize()
+        launched.append(_ran())
+    (w0, _), (w1, _), (w2, r2) = launched
+    same = all((r["groups"], r["nfe"], r["nfe_independent"])
+               == (runs[0]["groups"], runs[0]["nfe"],
+                   runs[0]["nfe_independent"]) for r in runs)
+    err = max(float((runs[2][k] - runs[1][k]).abs().max())
+              for k in ("latents", "independent"))
+    kern = {k: w2[k] for k in ("flash_attention", "ddim_step")}
+    log(f"[quickstart] groups {runs[0]['groups']}, NFE {runs[0]['nfe']} / "
+        f"{runs[0]['nfe_independent']} in all three runs: {same}; f32 "
+        f"kernel routes vs plain: latents max abs err {err:.3e} (bar "
+        f"{QUICKSTART_TOL:g}); launches, kernel run {kern} (flash by route "
+        f"sm90 {w2['flash_attention/sm90']}, tf32x3 "
+        f"{w2['flash_attention/tf32x3']}), plain runs "
+        f"{sum(w0[k] + w1[k] for k in KERNELS)}")
+    if (not same or not err <= QUICKSTART_TOL or min(kern.values()) == 0
+            or any(w0[k] + w1[k] for k in KERNELS)):
+        failures.append(f"quickstart: same {same}, err {err}, kernel run "
+                        f"{kern}")
+    return w2, r2
+
+
+def _metrics(failures, dev):
+    """``fd_r``, ``clip_proxy`` and ``group_diversity`` (with a mask) on
+    seeded images, card against CPU, within ``METRIC_RTOL`` relative."""
+    import numpy as np
+    import torch
+    from repro_torch.core import metrics
+    rng = np.random.default_rng(93)
+    real, gen = (torch.from_numpy(rng.uniform(-1, 1, (16, 16, 16, 3)).astype(
+        np.float32)) for _ in range(2))
+    groups = torch.from_numpy(rng.uniform(-1, 1, (3, 4, 16, 16, 3)).astype(
+        np.float32))
+    mask = torch.tensor([[1, 1, 1, 1], [1, 1, 0, 0], [1, 1, 1, 0]],
+                        dtype=torch.float32)
+    text, image = (torch.nn.functional.normalize(torch.from_numpy(
+        rng.standard_normal((16, 64)).astype(np.float32)), dim=-1)
+        for _ in range(2))
+    card, host = ((metrics.fd_r(real.to(d), gen.to(d)),
+                   metrics.clip_proxy(text.to(d), image.to(d)),
+                   metrics.group_diversity(groups.to(d), mask.to(d)))
+                  for d in (dev, torch.device("cpu")))
+    err = max(abs(a - b) / abs(b) for a, b in zip(card, host))
+    log(f"[metrics] fd_r, clip_proxy, group_diversity: card {card}, CPU "
+        f"{host}; max rel err {err:.3e} (bar {METRIC_RTOL:g})")
+    if not err <= METRIC_RTOL:
+        failures.append(f"metrics card vs CPU: {err}")
+
+
+def phase_lm_train(failures):
+    """LM training through ``launch.train`` on the card: ``mamba2-780m``
+    at full width and depth (the SSM layers' plain scan) and
+    ``phi3-mini-3.8b`` at full width cut to 8 layers, with AdamW; every
+    kernel count must stay 0 (no kernel has a backward).  Then the smoke
+    reference, the quickstart on both routes and the metrics.  Returns
+    the launches by path: the training runs' and the quickstart kernel
+    run's."""
+    import torch
+    dev = torch.device("cuda")
+    counters = _counters()
+    _reset_counts(counters)
+    for arch, n_layers in LM_TRAIN_RUNS:
+        _lm_train_full(failures, arch, n_layers, dev)
+    _lm_train_reference(failures, dev)
+    train_launches = _ran()
+    log(f"[lm_train] kernel launches while training: "
+        f"{ {k: train_launches[0][k] for k in KERNELS} } (all must be 0)")
+    if any(train_launches[0][k] for k in KERNELS):
+        failures.append(f"lm_train: kernels launched under training: "
+                        f"{train_launches[0]}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    quick = _quickstart(failures, dev)
+    _metrics(failures, dev)
+    return {"lm_train": train_launches, "quickstart": quick}
+
+
 def main(argv) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -5445,6 +5663,10 @@ def main(argv) -> int:
     phase_train(failures)
     gc.collect()
     torch.cuda.empty_cache()
+    t5l = time.perf_counter()
+    launches.update(phase_lm_train(failures))
+    gc.collect()
+    torch.cuda.empty_cache()
     t5 = time.perf_counter()
     phase_reference(failures)
     t6 = time.perf_counter()
@@ -5457,7 +5679,7 @@ def main(argv) -> int:
         f"{t4e - t4:.1f} s, e2e mamba2 {t5d - t4e:.1f} s, e2e dense "
         f"{t5h - t5d:.1f} s, e2e hybrid_moe {t5v - t5h:.1f} s, e2e "
         f"vlm_encdec {t5t - t5v:.1f} s, train "
-        f"{t5 - t5t:.1f} s, reference "
+        f"{t5l - t5t:.1f} s, lm_train {t5 - t5l:.1f} s, reference "
         f"{t6 - t5:.1f} s, graph nodes {t7 - t6:.1f} s")
     if failures:
         for f in failures:

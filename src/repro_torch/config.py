@@ -2,7 +2,7 @@
 
 Frozen dataclasses + a registry keyed by arch id, copied from the JAX
 package's ``repro.config`` so the port has no import of it: the model,
-sampler, optimizer and training configs.
+sampler, input-shape, optimizer and training configs.
 """
 from __future__ import annotations
 
@@ -207,6 +207,23 @@ class SageConfig:
     @property
     def branch_point(self) -> int:
         return int(round(self.total_steps * (1.0 - self.share_ratio)))
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """An assigned input shape: the sharding rules' batch and length."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                      # "train" | "prefill" | "decode"
+
+
+SHAPES: Dict[str, ShapeConfig] = {
+    "train_4k":    ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k":  ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k":   ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
 
 
 @dataclass(frozen=True)

@@ -38,11 +38,13 @@ from repro_torch.kernels.flash_attention.ops import (MAX_HEAD_DIM,
 from repro_torch.kernels.group_mean.ops import masked_group_mean
 from repro_torch.kernels.group_mean.ref import masked_group_mean_ref
 from repro_torch.kernels.ssd_scan.ops import ssd_chunked_kernel
+from repro_torch.kernels.ssd_scan.ref import ssd_chunked_ref
 from repro_torch.models.layers import attend, attend_chunked, causal_mask
 
 ATTN_IMPLS = ("naive", "chunked", "kernel")
 STEP_IMPLS = ("reference", "fused")
 GROUP_MEAN_IMPLS = ("reference", "kernel")
+SSD_IMPLS = ("kernel", "reference")
 
 
 class DispatchLog:
@@ -202,9 +204,15 @@ def group_mean(x: torch.Tensor, mask: torch.Tensor, *,
 
 def ssd(x: torch.Tensor, dA: torch.Tensor, B_: torch.Tensor,
         C_: torch.Tensor, chunk: int,
-        init_state: Optional[torch.Tensor] = None):
-    """The Mamba2 SSD scan (``models.ssm.ssd_chunked``'s contract): on a
-    CUDA tensor the intra-chunk kernel, launched or raising; on a CPU tensor
-    its plain tile.  The JAX config has no switch for it, and neither does
-    the port's: every ``ssm_full`` goes through here."""
-    return ssd_chunked_kernel(x, dA, B_, C_, chunk, init_state)
+        init_state: Optional[torch.Tensor] = None, *, impl: str = "kernel"):
+    """The Mamba2 SSD scan (``models.ssm.ssd_chunked``'s contract).
+    ``"kernel"``: on a CUDA tensor the intra-chunk kernel, launched or
+    raising; on a CPU tensor its plain tile.  ``"reference"``: the plain
+    scan (``ssd_chunked_ref``) on any device, the differentiable route:
+    the kernel has no backward, and the JAX model differentiates its jnp
+    scan, never the Pallas tile.  The JAX config has no switch for it:
+    the caller picks the route, ``forward_train`` when autograd records."""
+    if impl not in SSD_IMPLS:
+        raise ValueError(f"unknown ssd impl {impl!r}; one of {SSD_IMPLS}")
+    scan = ssd_chunked_kernel if impl == "kernel" else ssd_chunked_ref
+    return scan(x, dA, B_, C_, chunk, init_state)

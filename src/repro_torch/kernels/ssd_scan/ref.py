@@ -11,9 +11,10 @@ twins).
 
 All compute in f32, with the cumulative sum of dA taken in f64 and
 rounded once (:func:`cumsum_f32`; the JAX package sums in f32, in an order
-of XLA's choosing), and select the causal decay mask with ``where``: for
-i < j the segment sum is positive and ``exp`` of it overflows, so it is
-never multiplied by the mask.
+of XLA's choosing), and mask the causal decay as the JAX package does
+(:func:`_decay`): for i < j the segment sum is positive and ``exp`` of it
+overflows, so it is replaced by -inf before ``exp``, never multiplied by
+the mask, and its gradient is 0, not ``0 * inf``.
 """
 from __future__ import annotations
 
@@ -30,8 +31,12 @@ def cumsum_f32(a: torch.Tensor, dim: int = -1) -> torch.Tensor:
     return torch.cumsum(a.double(), dim=dim).float()
 
 
-def _tril(Q: int, device) -> torch.Tensor:
-    return torch.ones((Q, Q), dtype=torch.bool, device=device).tril()
+def _decay(seg: torch.Tensor) -> torch.Tensor:
+    """exp of the segment sums (..., Q, Q) below and on the diagonal, 0
+    above it."""
+    Q = seg.shape[-1]
+    tril = torch.ones((Q, Q), dtype=torch.bool, device=seg.device).tril()
+    return torch.exp(torch.where(tril, seg, -torch.inf))
 
 
 def ssd_intra_chunk_ref(dA: torch.Tensor, x: torch.Tensor, B: torch.Tensor,
@@ -42,7 +47,7 @@ def ssd_intra_chunk_ref(dA: torch.Tensor, x: torch.Tensor, B: torch.Tensor,
     dA, x, B, C = (t.float() for t in (dA, x, B, C))
     cum = cumsum_f32(dA)                                      # (G, Q)
     seg = cum[:, :, None] - cum[:, None, :]                   # (G, Q, Q)
-    L = torch.where(_tril(dA.shape[-1], dA.device), torch.exp(seg), 0.0)
+    L = _decay(seg)
     S = (C @ B.transpose(1, 2)) * L
     y = S @ x
     decay = torch.exp(cum[:, -1:] - cum)                      # (G, Q)
@@ -96,7 +101,7 @@ def ssd_chunked_ref(x: torch.Tensor, dA: torch.Tensor, B_: torch.Tensor,
     A_cum = cumsum_f32(A)
 
     seg = A_cum[..., :, None] - A_cum[..., None, :]
-    L = torch.where(_tril(Q, x.device), torch.exp(seg), 0.0)  # (b,h,c,Q,Q)
+    L = _decay(seg)                                            # (b,h,c,Q,Q)
     Y_diag = torch.einsum("bzqn,bzsn,bhzqs,bzshp->bzqhp", Cf, Bf, L, xf)
 
     decay_states = torch.exp(A_cum[..., -1:] - A_cum)         # (b,h,c,Q)

@@ -52,15 +52,18 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def launcher_extras(cfg, batch: int) -> Dict[str, np.ndarray]:
-    """The launcher's zero memory inputs: the VLM's ``image_embeds`` and
-    encdec's 32 ``frames`` (none for the other families)."""
+def launcher_extras(cfg, batch: int, n_frames: int = 32
+                    ) -> Dict[str, np.ndarray]:
+    """The launchers' zero memory inputs: the VLM's ``image_embeds`` and
+    encdec's ``n_frames`` ``frames`` (the serving launcher's 32; the
+    training launcher's ``max(seq // 4, 16)``), none for the other
+    families."""
     extras = {}
     if cfg.family == "vlm":
         extras["image_embeds"] = np.zeros(
             (batch, cfg.n_image_tokens, cfg.vision_dim), np.float32)
     if cfg.family == "encdec":
-        extras["frames"] = np.zeros((batch, 32, cfg.enc_input_dim),
+        extras["frames"] = np.zeros((batch, n_frames, cfg.enc_input_dim),
                                     np.float32)
     return extras
 

@@ -45,12 +45,19 @@ class MoE(nn.Module):
         kw = dict(device=device, generator=generator)
         E = m.n_routed
         self.router = nn.Parameter(dense_init(d, E, **kw))
-        self.wi = nn.Parameter(torch.stack([dense_init(d, ff, **kw)
-                                            for _ in range(E)]))
-        self.wg = nn.Parameter(torch.stack([dense_init(d, ff, **kw)
-                                            for _ in range(E)]))
-        self.wo = nn.Parameter(torch.stack([dense_init(ff, d, **kw)
-                                            for _ in range(E)]))
+
+        def experts(d_in: int, d_out: int) -> torch.Tensor:
+            # one draw an expert; on the meta device nothing is drawn, and
+            # the stack is made at once (kimi-k2's 60 x 3 stacks of 384
+            # would take minutes one by one)
+            if torch.device(device).type == "meta":
+                return torch.empty((E, d_in, d_out), device=device)
+            return torch.stack([dense_init(d_in, d_out, **kw)
+                                for _ in range(E)])
+
+        self.wi = nn.Parameter(experts(d, ff))
+        self.wg = nn.Parameter(experts(d, ff))
+        self.wo = nn.Parameter(experts(ff, d))
         if m.n_shared:
             sf = m.n_shared * ff
             self.shared = nn.ParameterDict({

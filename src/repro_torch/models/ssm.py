@@ -1,7 +1,8 @@
 """Mamba2 / SSD (state-space duality) mixer.  [arXiv:2405.21060]
 
-Chunked SSD for prefill (quadratic intra-chunk + linear inter-chunk
-recurrence, through ``kernels.dispatch.ssd``) and an O(1)-state
+Chunked SSD for training and prefill (quadratic intra-chunk + linear
+inter-chunk recurrence, through ``kernels.dispatch.ssd``: the kernel, or
+its plain scan where a gradient is recorded) and an O(1)-state
 single-step recurrence for decode.  Single B/C group (n_groups = 1), as in
 the JAX package.
 
@@ -84,8 +85,10 @@ class Mamba2Mixer(nn.Module):
         return dot(rms_norm(y, self.norm, self.cfg.rms_eps), self.out_proj)
 
     def ssm_full(self, u: torch.Tensor, init_state=None,
-                 return_cache: bool = False):
-        """Prefill path.  u (B,S,D) -> (B,S,D) [, cache]."""
+                 return_cache: bool = False, ssd_impl: str = "kernel"):
+        """Train / prefill path.  u (B,S,D) -> (B,S,D) [, cache].
+        ``ssd_impl`` is ``dispatch.ssd``'s route: ``"reference"`` where
+        autograd records through the scan."""
         s, d_in, H = ssm_dims(self.cfg)
         B, S, _ = u.shape
         z, xBC, dt = self._split(u)
@@ -95,7 +98,7 @@ class Mamba2Mixer(nn.Module):
         dt = F.softplus(dt.float() + self.dt_bias)                # (B,S,H)
         A = -torch.exp(self.A_log)                                # (H,)
         y, final = dispatch.ssd(x * dt[..., None].to(x.dtype), dt * A, B_,
-                                C_, s.chunk, init_state)
+                                C_, s.chunk, init_state, impl=ssd_impl)
         y = y + x * cast(self.D, x.dtype)[None, None, :, None]
         out = self._post(y.reshape(B, S, d_in), z)
         if not return_cache:

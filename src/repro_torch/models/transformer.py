@@ -12,6 +12,9 @@ Public API (the model stands in for ``(params, cfg)``)
 LM(cfg, device=, generator=)                        -> model  (init_params)
 forward_train(model, tokens, extras=, remat=)       -> (logits (B,S,V), aux)
 lm_loss(model, batch, remat=)                       -> scalar loss
+stacked_params(model)                               -> params  (JAX layout)
+tree_loss(model, params, batch, remat=)             -> lm_loss over params
+meta_lm(cfg)                                        -> shapes only (eval_shape)
 encode(model, frames, remat=)                       -> encoder memory
 init_cache(model, batch, max_len, dtype=, window=)  -> zero cache
 prefill(model, tokens, extras=, max_len=, window=)  -> (last_logits, cache)
@@ -41,6 +44,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
+from repro_torch import tree as tu
 from repro_torch.config import (MIX_ATTN, MIX_CROSS_ATTN, MIX_LOCAL_ATTN,
                                 MIX_RGLRU, MIX_SSM, ModelConfig)
 from repro_torch.models import attention as attn
@@ -177,14 +181,16 @@ class Layer(nn.Module):
 def apply_layer(layer: Layer, cfg: ModelConfig, x: torch.Tensor, *,
                 mode: str, cache=None, pos=None, memory=None,
                 window: int = 0, ring: bool = False, max_len: int = 0,
-                out=None) -> Tuple[torch.Tensor, Any, Optional[torch.Tensor]]:
+                out=None, ssd_impl: str = "kernel"
+                ) -> Tuple[torch.Tensor, Any, Optional[torch.Tensor]]:
     """``mode`` "train" | "prefill" | "decode" -> (x, new_cache, aux), the
     new cache None in train, aux the router's load-balance loss of an MoE
     layer (None for the others).  A local-attention layer attends within
     ``cfg.window`` whatever the call's ``window``, and its decode is always
     a ring.  A cross-attention layer attends to ``memory`` (train,
     prefill) or to its cache's ``cross`` K/V (decode).  In decode, ``out``
-    (optional) holds the tensors the new cache is written into."""
+    (optional) holds the tensors the new cache is written into.  In train,
+    ``ssd_impl`` is an SSM layer's scan route (``dispatch.ssd``)."""
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"unknown mode {mode!r}")
     h = rms_norm(x, layer.ln1, cfg.rms_eps)
@@ -231,7 +237,7 @@ def apply_layer(layer: Layer, cfg: ModelConfig, x: torch.Tensor, *,
                                                   out=out)
     else:
         if mode == "train":
-            a = layer.mix.ssm_full(h)
+            a = layer.mix.ssm_full(h, ssd_impl=ssd_impl)
         elif mode == "prefill":
             a, new_cache = layer.mix.ssm_full(h, return_cache=True)
         else:
@@ -266,14 +272,17 @@ class LM(nn.Module):
     the embeddings are not tied; the VLM's image projector ``proj``; the
     encdec encoder's ``enc_in``, ``enc_blocks`` (one ``{"l0": <dense GQA
     layer>}`` a layer) and ``enc_ln``.  Weights are f32; activations run in
-    ``cfg.dtype``.  ``device`` defaults to CUDA and raises without a GPU."""
+    ``cfg.dtype``.  ``device`` defaults to CUDA and raises without a GPU;
+    on the meta device nothing is drawn (:func:`meta_lm`).  Calling the
+    model is :func:`lm_loss` (``model(batch, remat=)``), which
+    :func:`tree_loss` runs over a parameter tree."""
 
     def __init__(self, cfg: ModelConfig, *, device="cuda",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         device = resolve_device(device)
         prefix, block, n_blocks, suffix = plan(cfg)
-        if generator is None:
+        if generator is None and device.type != "meta":
             generator = torch.Generator(device=device).manual_seed(0)
         kw = dict(device=device, generator=generator)
         self.cfg = cfg
@@ -325,6 +334,10 @@ class LM(nn.Module):
         return cast_weights_(self._cast,
                              dtype or getattr(torch, self.cfg.dtype))
 
+    def forward(self, batch: Dict[str, Any], remat: bool = False
+                ) -> torch.Tensor:
+        return lm_loss(self, batch, remat)
+
 
 def _stack(trees: Sequence[Any]) -> Any:
     """Stack a list of equal-structure cache trees along a new axis 0."""
@@ -358,11 +371,12 @@ def _unbind(tree: Any, n: int) -> List[Any]:
 
 
 def _block(bm: nn.ModuleDict, cfg: ModelConfig, x: torch.Tensor,
-           memory: Optional[torch.Tensor] = None
+           memory: Optional[torch.Tensor] = None, ssd_impl: str = "kernel"
            ) -> Tuple[torch.Tensor, torch.Tensor]:
     aux = torch.zeros((), device=x.device)
     for layer in bm.values():
-        x, _, a = apply_layer(layer, cfg, x, mode="train", memory=memory)
+        x, _, a = apply_layer(layer, cfg, x, mode="train", memory=memory,
+                              ssd_impl=ssd_impl)
         if a is not None:
             aux = aux + a
     return x, aux
@@ -416,24 +430,30 @@ def forward_train(model: LM, tokens, extras: Optional[Dict[str, Any]] = None,
     (``jax.checkpoint`` of the scan body).  ``extras`` holds the VLM's
     ``image_embeds`` (B, n_image_tokens, vision_dim) or encdec's
     ``frames`` (B, T, enc_input_dim).  ``aux`` is the sum of the MoE
-    layers' router load-balance losses (0 without MoE layers)."""
+    layers' router load-balance losses (0 without MoE layers).
+
+    The SSM layers' scan takes its plain route while autograd records
+    (grad mode on), since the SSD kernel has no backward, and the kernel
+    under ``torch.no_grad()``, as a prefill does."""
     cfg = model.cfg
     x = model.embed_tokens(tokens)
     memory = _memory(model, extras, remat)
+    ssd_impl = "reference" if torch.is_grad_enabled() else "kernel"
+    kw = dict(mode="train", memory=memory, ssd_impl=ssd_impl)
     aux = torch.zeros((), device=x.device)
     for layer in model.prefix:
-        x, _, a = apply_layer(layer, cfg, x, mode="train", memory=memory)
+        x, _, a = apply_layer(layer, cfg, x, **kw)
         if a is not None:
             aux = aux + a
     for bm in model.blocks:
         if remat and torch.is_grad_enabled():
-            x, a = checkpoint(_block, bm, cfg, x, memory,
+            x, a = checkpoint(_block, bm, cfg, x, memory, ssd_impl,
                               use_reentrant=False)
         else:
-            x, a = _block(bm, cfg, x, memory)
+            x, a = _block(bm, cfg, x, memory, ssd_impl)
         aux = aux + a
     for layer in model.suffix:
-        x, _, a = apply_layer(layer, cfg, x, mode="train", memory=memory)
+        x, _, a = apply_layer(layer, cfg, x, **kw)
         if a is not None:
             aux = aux + a
     return model.logits(x), aux
@@ -542,3 +562,77 @@ def decode_step(model: LM, cache: Cache, token, pos=None, ring: bool = False,
         x, nc, _ = apply_layer(layer, cfg, x, cache=c, out=o, **kw)
         new["suffix"].append(nc)
     return model.logits(x), new
+
+
+#: the top-level subtrees whose leaves the JAX package stacks over layers
+#: (``jax.vmap`` in ``init_params``); the module keeps one entry a layer
+STACKED = ("blocks", "enc_blocks")
+#: the top-level subtrees that are lists in the JAX tree
+_LISTS = ("prefix", "suffix")
+
+
+def stacked_params(model: LM) -> Dict[str, Any]:
+    """A copy of ``model``'s weights in the layout of the JAX package's
+    ``init_params``: nested dicts, the ``prefix`` / ``suffix`` layer lists,
+    and each leaf of ``blocks`` / ``enc_blocks`` stacked over a leading
+    layer axis, so an optimizer sees JAX's leaves (adafactor factors and
+    clips a whole stacked leaf).  On the meta device: the shape tree."""
+    flat: Dict[str, torch.Tensor] = {}
+    layers: Dict[str, List[torch.Tensor]] = {}
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            top, _, rest = name.partition(".")
+            if top in STACKED:
+                # blocks.{i}.<leaf>, met in layer order
+                layers.setdefault(f"{top}.{rest.partition('.')[2]}",
+                                  []).append(p.detach())
+            else:
+                flat[name] = p.detach().clone()
+        flat.update({k: torch.stack(v) for k, v in layers.items()})
+    tree: Dict[str, Any] = {}
+    for name, leaf in flat.items():
+        *path, last = name.split(".")
+        node = tree
+        for k in path:
+            node = node.setdefault(k, {})
+        node[last] = leaf
+    for k in _LISTS:
+        layers = tree.get(k, {})
+        tree[k] = [layers[str(i)] for i in range(len(layers))]
+    return tree
+
+
+def _module_params(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """A JAX-layout tree as the module's dotted parameter names: each
+    stacked leaf unbound into per-layer views (``blocks.{i}.<leaf>``), so
+    the gradient of a stacked leaf comes back as one stacked tensor."""
+    out: Dict[str, torch.Tensor] = {}
+    for path, leaf in tu.flatten_with_path(params):
+        rest = ".".join(map(str, path[1:]))
+        if path[0] in STACKED:
+            for i, view in enumerate(leaf.unbind(0)):
+                out[f"{path[0]}.{i}.{rest}"] = view
+        else:
+            out[".".join(map(str, path))] = leaf
+    return out
+
+
+def tree_loss(model: LM, params: Dict[str, Any], batch: Dict[str, Any],
+              remat: bool = False) -> torch.Tensor:
+    """:func:`lm_loss` with ``params`` (the JAX layout,
+    :func:`stacked_params`) in place of ``model``'s own weights, every one
+    of which it must give: the JAX ``lm_loss(params, cfg, batch)``, and
+    differentiable in ``params``.  ``model`` only supplies the structure,
+    so it may live on the meta device (:func:`meta_lm`)."""
+    return torch.func.functional_call(model, _module_params(params),
+                                      (batch,), {"remat": remat},
+                                      strict=True)
+
+
+def meta_lm(cfg: ModelConfig) -> LM:
+    """An :class:`LM` on the meta device, the counterpart of
+    ``jax.eval_shape``: nothing is drawn or allocated, so any config
+    builds in well under a second.  :func:`stacked_params` of it is the
+    parameter shape tree, :func:`init_cache` the cache's, an optimizer's
+    ``init`` the state's; :func:`tree_loss` runs over it."""
+    return LM(cfg, device="meta")

@@ -1,5 +1,6 @@
 """Weight bridge: JAX parameter pytrees (as numpy arrays) -> the port's
-modules, and the DiT back (:func:`dit_to_jax`).
+modules, and the DiT and the LM back (:func:`dit_to_jax`,
+:func:`lm_to_jax`).
 
 The JAX package keeps parameters as nested dicts (``dit.init_params``,
 ``text_encoder.init_text``, ``vae.init_params``); hand them over as
@@ -32,6 +33,7 @@ from repro_torch import tree as tu
 from repro_torch.config import ModelConfig
 from repro_torch.models.dit import DiT, stacked_params
 from repro_torch.models.text_encoder import ImageTower, TextTower
+from repro_torch.models import transformer
 from repro_torch.models.transformer import LM
 from repro_torch.models.vae import VAEDecoder, VAEEncoder
 from repro_torch.serving.ann_index import LshIndex
@@ -180,6 +182,15 @@ def lm_from_jax(params: Mapping, cfg: ModelConfig, *, device="cuda") -> LM:
     model = LM(cfg, device=device)
     load_numpy(model, _unstack_blocks(dict(_flatten(params))))
     return model
+
+
+def lm_to_jax(model: LM) -> Dict:
+    """The inverse of :func:`lm_from_jax`: ``model``'s weights as a
+    ``transformer.init_params``-layout tree of numpy arrays, ``blocks`` and
+    ``enc_blocks`` stacked back over the layer axis, ``prefix`` / ``suffix``
+    lists."""
+    return tu.tree_map(lambda x: x.cpu().numpy(),
+                       transformer.stacked_params(model))
 
 
 def lsh_from_jax(planes: Mapping[int, np.ndarray], *, n_tables: int = 8,

@@ -31,7 +31,9 @@ from repro_torch import weights
 from repro_torch.config import SageConfig, get_config, replace
 from repro_torch.core import shared_sampling as ss
 from repro_torch.core.schedule import make_schedule
+from repro_torch.examples import quickstart
 from repro_torch.kernels import dispatch
+from repro_torch.launch import train as lm_train
 from repro_torch.models import text_encoder as te
 from repro_torch.models.dit import DiT
 from repro_torch.serving import packing
@@ -330,3 +332,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
         ss.shared_sample(model, make_schedule(10), SageConfig(total_steps=2),
                          torch.zeros(1, 8, 8, 4), torch.zeros(1, 1, 48, 64),
                          torch.ones(1, 1), torch.zeros(48, 64))
+    # the LM training launcher and the quickstart, called as a user would
+    with pytest.raises(RuntimeError, match="cuda"):
+        lm_train.main(["--arch", "mamba2-780m", "--smoke", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        quickstart.main([])
