@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--parent DIR]
 
-Run from the root of a checkout.  Eleven phases; any failure exits non-zero
+Run from the root of a checkout.  Twelve phases; any failure exits non-zero
 without the result line:
 
 1. build — compile the CUDA kernels under ``src/repro_torch/csrc`` with
@@ -204,6 +204,29 @@ without the result line:
    latents within 1e-3, flash and ``ddim_step`` launched by the kernel
    run only), and the metrics (``fd_r``, ``clip_proxy``,
    ``group_diversity``) card vs CPU within 1e-5;
+5g. dryrun — the dry run (``repro_torch.launch.dryrun``): ``run_case`` at
+   full size on a fake 16x16 group for ``DRYRUN_CASES``, in child
+   processes (each result line printed; the JSONs under
+   ``experiments/dryrun_torch``; a case in which a sharded op found no
+   DTensor plan and ran whole on every rank fails); meanwhile
+   ``sage-dit`` ``sage_serve`` at full width with ``DRYRUN_SAGE`` (8
+   groups of 4: 80 rows of 1024 tokens over the two CFG evaluations) on a
+   one-process ``nccl`` group and a 1x1 mesh, seeded, on the dry run's
+   own route (``naive``): its local FLOP count must equal the dry run's
+   of the same case on a 1-rank fake group exactly, the arguments'
+   ``memory_allocated`` delta its ``argument_size_in_bytes`` within the
+   allocator's rounding of each tensor (its blocks, read from
+   ``torch.cuda.memory_snapshot``), and no kernel may launch; the
+   measured peak beside the predicted arguments + temporaries, the
+   median wall of ``DRYRUN_WALL_STEPS`` steps (taken once the child
+   processes have ended) beside the datasheet compute and memory terms.
+   Then the same case on the ``kernel`` route: exactly
+   ``DRYRUN_FLASH_SM90`` sm90 flash launches
+   (2 DiT forwards x 28 blocks x self + cross), both latents within
+   bf16's 3e-2 of the naive step's (normwise; and each one's mean error
+   against the naive step in f32 within 1.25x the naive bf16 step's, the
+   bar of the e2e phase's bf16 forward check), its wall beside that
+   one's;
 6. reference — each path at smoke size on the card against the plain CPU
    path: equal groups, NFE, launches and token-step counts, images and
    logits within tolerance; the stream traces the same way (equal
@@ -291,7 +314,8 @@ TOL = {("ddim_step", "float32"): 1e-5, ("ddim_step", "bfloat16"): 3e-2,
        ("flash_attention", "float32"): 2e-4,
        ("flash_attention", "bfloat16"): 1e-2,
        ("ssd_scan", "float32"): 1e-4, ("ssd_scan", "bfloat16"): 1e-4,
-       ("ssd_scan y", "float32"): 1e-4, ("ssd_scan y", "bfloat16"): 2.0 ** -6}
+       ("ssd_scan y", "float32"): 1e-4, ("ssd_scan y", "bfloat16"): 2.0 ** -6,
+       ("sage_step", "bfloat16"): 3e-2}
 
 THEMES = (
     ["a red circle on a white background",
@@ -5591,6 +5615,270 @@ def phase_lm_train(failures):
     return {"lm_train": train_launches, "quickstart": quick}
 
 
+# the dry run's full-size cases on the fake 16x16 group
+DRYRUN_CASES = (("sage-dit", "sage_serve"), ("phi3-mini-3.8b", "decode_32k"),
+                ("mamba2-780m", "train_4k"))
+# sage_serve on one card: K cut from 64 to 8 groups of N = 4 (80 rows of
+# 1024 tokens over the two CFG evaluations; at K = 64 the naive scores
+# alone would need ~43 GB)
+DRYRUN_SAGE = {"k_groups": 8, "group_n": 4}
+DRYRUN_WALL_STEPS = 5
+# seconds a full-size dry run's child process may take
+DRYRUN_CHILD_S = 600
+# 2 DiT forwards (shared, branch) x 28 blocks x (self + cross): the
+# kernel route's flash launches of one sage_serve step
+DRYRUN_FLASH_SM90 = 2 * 28 * 2
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _median_wall(fn, n):
+    """The median host wall of ``n`` calls of ``fn()``, each ending in a
+    device sync, after one warm-up call."""
+    import statistics
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(n):
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+    return statistics.median(walls), walls
+
+
+def _block_sizes(tensors):
+    """The caching allocator's block under each tensor's storage
+    (``torch.cuda.memory_snapshot``): its bytes as the allocator rounded
+    them."""
+    import torch
+    blocks = {}
+    for seg in torch.cuda.memory_snapshot():
+        addr = seg["address"]
+        for b in seg["blocks"]:
+            if b["state"] == "active_allocated":
+                blocks[addr] = b["size"]
+            addr += b["size"]
+    return [blocks[t.untyped_storage().data_ptr()] for t in tensors]
+
+
+def _sage_fill(seed):
+    """Seeded values for a sage_serve case's tensors on the card: weights
+    N(0, 0.02^2), integers 0."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def fill(shape, dtype):
+        if not dtype.is_floating_point:
+            return torch.zeros(shape, dtype=dtype, device="cuda")
+        return (torch.randn(shape, generator=gen, device="cuda")
+                * 0.02).to(dtype)
+    return fill
+
+
+def _seed_inputs(case, seed):
+    """The latents and conditions of a sage_serve case redrawn N(0, 1)."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    for x in case.args[1:]:
+        x.to_local().copy_(torch.randn(x.shape, generator=gen,
+                                       device="cuda").to(x.dtype))
+
+
+def phase_dryrun(failures):
+    """The dry run: full-size cases on a fake 16x16 group, in child
+    processes, while ``sage_serve`` is predicted and measured on this card
+    with its kernel route (module docstring, 5g).  Returns the kernel
+    route's launches."""
+    # the full-size dry runs need no card: one child process each, all at
+    # once, while this process counts on the card; they are waited for
+    # before the card's step is timed, so that no wall is taken beside
+    # them
+    out = ROOT / "experiments" / "dryrun_torch"
+    out.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    children = []
+    for arch, shape in DRYRUN_CASES:
+        logf = open(out / f"{arch}_{shape}.log", "w")
+        children.append((arch, shape, logf, subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--out", str(out)], cwd=ROOT, env=env,
+            stdout=logf, stderr=subprocess.STDOUT)))
+
+    def settle():
+        while children:
+            arch, shape, logf, child = children.pop(0)
+            try:
+                rc = child.wait(timeout=DRYRUN_CHILD_S)
+            except subprocess.TimeoutExpired:
+                child.kill()
+                rc = child.wait()
+            logf.close()
+            text = (out / f"{arch}_{shape}.log").read_text()
+            for line in text.splitlines():
+                if line.startswith(("[dryrun]", "  memory_analysis")):
+                    log(line)
+            if rc != 0:
+                failures.append(f"dryrun {arch}:{shape}: exit {rc}: "
+                                f"{text[-2000:]}")
+                continue
+            res = json.loads((out / f"{arch}_{shape}_16x16.json")
+                             .read_text())
+            log(f"[dryrun:{arch}:{shape}] {json.dumps(res)}")
+
+    try:
+        launches = _dryrun_on_card(failures, settle)
+    finally:
+        settle()
+    return {"dryrun": launches}
+
+
+def _dryrun_on_card(failures, settle):
+    """``sage_serve`` at ``DRYRUN_SAGE`` predicted (a 1-rank fake group)
+    against measured on this card on a one-process ``nccl`` group, then
+    its kernel route (module docstring, 5g); returns the kernel route's
+    launches.  ``settle()`` waits for the other processes of the phase,
+    before the first step is timed."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    import dataclasses
+    from repro_torch import tree as tu
+    from repro_torch.config import get_config
+    from repro_torch.launch import dryrun, specs
+    from repro_torch.launch.costs import HBM_BW, PEAK_FLOPS as BF16_PEAK
+
+    arch, shape = "sage-dit", "sage_serve"
+    with dryrun.fake_group(1):
+        mesh = init_device_mesh("cpu", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        pred = dryrun.measure(arch, shape, mesh, kw=DRYRUN_SAGE)
+    ma = pred["memory_analysis"]
+    pred_peak = ma["argument_size_in_bytes"] + ma["temp_size_in_bytes"]
+    compute_s = pred["flops"] / BF16_PEAK
+    memory_s = pred["bytes"] / HBM_BW
+    log(f"[dryrun:predicted] {arch}:{shape} {DRYRUN_SAGE} on 1 rank: "
+        f"flops {pred['flops']} bytes {pred['bytes']} memory_analysis "
+        f"{ma} fallbacks {pred['fallbacks']}; datasheet terms: compute "
+        f"{compute_s * 1e3:.2f} ms, memory {memory_s * 1e3:.2f} ms")
+
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{_free_port()}", rank=0, world_size=1)
+    counters = _counters()
+    try:
+        mesh = init_device_mesh("cuda", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        with specs.dtensor_rules():
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            case = specs.build_case(arch, shape, mesh, fill=_sage_fill(0),
+                                    **DRYRUN_SAGE)
+            torch.cuda.synchronize()
+            delta = torch.cuda.memory_allocated() - before
+            args_b = dryrun.local_bytes(case.args)
+            local = tu.tree_map(lambda x: x.to_local(), case.args)
+            blocks = _block_sizes(tu.leaves(local))
+            rounding = sum(b - t.numel() * t.element_size()
+                           for b, t in zip(blocks, tu.leaves(local)))
+            _seed_inputs(case, 0)
+            log(f"[dryrun:args] memory_allocated delta {delta} B; local "
+                f"bytes {args_b} B in {len(blocks)} tensors, the "
+                f"allocator's blocks {sum(blocks)} B (rounding {rounding} "
+                f"B); predicted argument_size_in_bytes "
+                f"{ma['argument_size_in_bytes']} B")
+            if args_b != ma["argument_size_in_bytes"] or delta != sum(
+                    blocks) or rounding < 0:
+                failures.append(
+                    f"dryrun args: delta {delta}, blocks {sum(blocks)}, "
+                    f"local {args_b}, predicted "
+                    f"{ma['argument_size_in_bytes']}")
+            _reset_counts(counters)
+            torch.cuda.reset_peak_memory_stats()
+            real = dryrun.count_step(case)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - before
+            naive_launches = _ran()
+            z_naive = [z.to_local().float() for z in real["out"]]
+            same = real["flops"] == pred["flops"]
+            log(f"[dryrun:measured] flops {real['flops']} (predicted "
+                f"{pred['flops']}, {'equal' if same else 'DIFFERENT'}); "
+                f"bytes {real['bytes']} (predicted {pred['bytes']}); "
+                f"peak {peak / 2**30:.3f} GiB above the arguments' start "
+                f"(predicted arguments + temporaries "
+                f"{pred_peak / 2**30:.3f} GiB); {_SMI}")
+            if not same:
+                failures.append(f"dryrun flops: measured {real['flops']} "
+                                f"!= predicted {pred['flops']}")
+            if any(naive_launches[0].values()):
+                failures.append(f"dryrun naive route launched kernels: "
+                                f"{naive_launches[0]}")
+            if not all(torch.isfinite(z).all() for z in z_naive):
+                failures.append("dryrun: non-finite latents")
+            del real
+            settle()
+            wall, walls = _median_wall(lambda: case.fn(*case.args),
+                                       DRYRUN_WALL_STEPS)
+        log(f"[dryrun:wall] naive route: median {wall * 1e3:.2f} ms of "
+            f"{DRYRUN_WALL_STEPS} steps ({[round(w * 1e3, 2) for w in walls]}"
+            f" ms) beside the datasheet terms compute "
+            f"{compute_s * 1e3:.2f} ms, memory {memory_s * 1e3:.2f} ms "
+            f"(memory / wall {memory_s / wall:.3f}); {_SMI}")
+        del case
+        gc.collect()
+        torch.cuda.empty_cache()
+        step = {}
+        for impl, dtype in (("kernel", "bfloat16"), ("naive", "float32")):
+            cfg = dataclasses.replace(get_config(arch), attn_impl=impl,
+                                      dtype=dtype)
+            step[impl] = specs.build_sage_serve(
+                cfg, mesh, fill=_sage_fill(0), **DRYRUN_SAGE).fn
+            gc.collect()
+        z_f32 = step["naive"](*local)
+        del step["naive"]
+        _reset_counts(counters)
+        kfn = step["kernel"]
+        z_kernel = kfn(*local)
+        torch.cuda.synchronize()
+        launches = _ran()
+        sm90 = launches[0]["flash_attention/sm90"]
+        others = {k: v for k, v in launches[0].items()
+                  if v and not k.startswith("flash_attention")}
+        for i, (zk, zn, z32) in enumerate(zip(z_kernel, z_naive, z_f32)):
+            rel = ((zk.float() - zn).norm() / zn.norm()).item()
+            err_k = (zk.float() - z32.float()).abs().mean().item()
+            err_n = (zn - z32.float()).abs().mean().item()
+            ok = rel <= TOL[("sage_step", "bfloat16")] and (
+                err_k <= 1.25 * err_n) and bool(torch.isfinite(zk).all())
+            log(f"[check] sage_step kernel vs naive z{i}: |dz| / |z| "
+                f"{rel:.4e} (tol {TOL[('sage_step', 'bfloat16')]:g}), "
+                f"max_abs_err {(zk.float() - zn).abs().max().item():.4e}; "
+                f"mean error against the f32 naive step: kernel "
+                f"{err_k:.4e}, naive bf16 {err_n:.4e} (tol 1.25x naive) "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                failures.append(f"sage_step kernel route z{i}: rel {rel}, "
+                                f"err {err_k} vs naive {err_n}")
+        log(f"[dryrun:kernel] sm90 flash launches {sm90} (want "
+            f"{DRYRUN_FLASH_SM90}); other kernels {others}")
+        if sm90 != DRYRUN_FLASH_SM90 or others:
+            failures.append(f"dryrun kernel route launches: {launches[0]}")
+        kwall, kwalls = _median_wall(lambda: kfn(*local), DRYRUN_WALL_STEPS)
+        _reset_counts(counters)
+        log(f"[dryrun:wall] kernel route: median {kwall * 1e3:.2f} ms of "
+            f"{DRYRUN_WALL_STEPS} steps "
+            f"({[round(w * 1e3, 2) for w in kwalls]} ms) beside the naive "
+            f"route's {wall * 1e3:.2f} ms; {_SMI}")
+    finally:
+        dist.destroy_process_group()
+    return launches
+
+
 def main(argv) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -5667,6 +5955,10 @@ def main(argv) -> int:
     launches.update(phase_lm_train(failures))
     gc.collect()
     torch.cuda.empty_cache()
+    t5r = time.perf_counter()
+    launches.update(phase_dryrun(failures))
+    gc.collect()
+    torch.cuda.empty_cache()
     t5 = time.perf_counter()
     phase_reference(failures)
     t6 = time.perf_counter()
@@ -5679,7 +5971,8 @@ def main(argv) -> int:
         f"{t4e - t4:.1f} s, e2e mamba2 {t5d - t4e:.1f} s, e2e dense "
         f"{t5h - t5d:.1f} s, e2e hybrid_moe {t5v - t5h:.1f} s, e2e "
         f"vlm_encdec {t5t - t5v:.1f} s, train "
-        f"{t5l - t5t:.1f} s, lm_train {t5 - t5l:.1f} s, reference "
+        f"{t5l - t5t:.1f} s, lm_train {t5r - t5l:.1f} s, dryrun "
+        f"{t5 - t5r:.1f} s, reference "
         f"{t6 - t5:.1f} s, graph nodes {t7 - t6:.1f} s")
     if failures:
         for f in failures:

@@ -181,6 +181,18 @@ class ModelConfig:
             total += self.vision_dim * d            # projector
         return total
 
+    def n_active_params(self) -> int:
+        """Active (per-token) params — differs from n_params only for MoE
+        (the JAX package's formula)."""
+        if self.moe is None:
+            return self.n_params()
+        m = self.moe
+        d = self.d_model
+        per_layer_all = (m.n_routed + m.n_shared) * 3 * d * m.d_ff_expert
+        per_layer_act = (m.top_k + m.n_shared) * 3 * d * m.d_ff_expert
+        n_moe_layers = self.n_layers - m.first_moe_layer
+        return self.n_params() - n_moe_layers * (per_layer_all - per_layer_act)
+
 
 @dataclass(frozen=True)
 class SageConfig:

@@ -12,3 +12,18 @@ from repro_torch.configs import (  # noqa: F401
     sage_dit,
     seamless_m4t_large_v2,
 )
+
+#: the assigned LM architectures, in the JAX package's order (the dry
+#: run's ``--all`` grid)
+ASSIGNED = [
+    "qwen1.5-32b",
+    "mamba2-780m",
+    "phi3-mini-3.8b",
+    "granite-20b",
+    "seamless-m4t-large-v2",
+    "llama-3.2-vision-11b",
+    "qwen3-32b",
+    "kimi-k2-1t-a32b",
+    "recurrentgemma-2b",
+    "deepseek-v2-lite-16b",
+]

@@ -1,0 +1,1064 @@
+"""Dry-run builders: a step function and its fully sharded inputs for
+every (architecture x input shape) pair on a ``DeviceMesh``; the twins of
+the JAX package's ``launch/specs.py``, builder for builder.
+
+Shapes come from the meta-device models (``transformer.meta_lm``, the DiT
+on ``device="meta"``), specs from ``sharding/partition.py``, and each
+input is a DTensor distributed by its spec (``partition.shard_tree``).  A
+builder makes its tensors with ``fill(shape, dtype)``, by default zeros
+on the mesh's device type in whatever mode is active (every rank makes
+the same values and keeps its shard of them): under
+``FakeTensorMode`` nothing is allocated (the dry run,
+``launch/dryrun.py``); given real seeded values on the card, the same
+case runs for real.
+
+:func:`dtensor_rules` holds what DTensor needs to run these steps: the
+op strategies registered for them and the redistribution that stands in
+where DTensor has none.  A step in which a sharded op found no plan at
+all, so that every rank ran it whole, is refused
+(:class:`Fallbacks`): its count would be that torch version's gap in
+DTensor's op coverage, not the sharded step's.
+"""
+from __future__ import annotations
+
+import collections
+import contextlib
+import dataclasses
+import functools
+import pathlib
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
+
+import torch
+
+from repro_torch import tree as tu
+from repro_torch.config import (ModelConfig, OptimConfig, SHAPES, ShapeConfig,
+                                get_config)
+from repro_torch.models import transformer as tfm
+from repro_torch.optim.optimizers import (apply_updates, clip_by_global_norm,
+                                          make_optimizer)
+from repro_torch.sharding import partition
+from repro_torch.sharding.partition import P
+
+# dense/MoE/VLM/enc-dec archs serve long_500k through a sliding-window cache
+# of this size (sub-quadratic requirement), as in the JAX package
+SERVE_WINDOW = 4096
+# audio frontend downsampling: encoder frames per decoder token ratio
+ENC_FRAMES_DIV = 4
+
+#: makes one global tensor: fill(shape, dtype) -> tensor
+Fill = Callable[[Tuple[int, ...], torch.dtype], torch.Tensor]
+
+
+class DryrunCase(NamedTuple):
+    name: str
+    fn: Any
+    args: Tuple
+    static: Dict[str, Any]
+
+
+def _zeros(mesh) -> Fill:
+    return lambda shape, dtype: torch.zeros(shape, dtype=dtype,
+                                            device=mesh.device_type)
+
+
+def _sds(shape, dtype, mesh, spec, fill: Fill):
+    """One input: ``fill``'s tensor distributed over ``mesh`` by ``spec``
+    (the twin of a ``ShapeDtypeStruct`` with a ``NamedSharding``).  Every
+    rank makes the same values, so each keeps its own shard of them."""
+    from torch.distributed.tensor import distribute_tensor
+    return distribute_tensor(fill(tuple(shape), dtype), mesh,
+                             partition.placements(spec, mesh),
+                             src_data_rank=None)
+
+
+def _shard(shapes, specs, mesh, fill: Fill):
+    """A tree of shape leaves (meta tensors) made by ``fill`` and
+    distributed by ``specs`` (each rank keeps its shard, as in
+    :func:`_sds`)."""
+    return partition.shard_tree(
+        tu.tree_map(lambda s: fill(tuple(s.shape), s.dtype), shapes),
+        specs, mesh, src_data_rank=None)
+
+
+def _extras_specs(cfg: ModelConfig, batch: int, seq: int, mesh, ba,
+                  fill: Fill):
+    if cfg.family == "vlm":
+        return {"image_embeds": _sds((batch, cfg.n_image_tokens,
+                                      cfg.vision_dim), torch.bfloat16, mesh,
+                                     P(ba, None, None), fill)}
+    if cfg.family == "encdec":
+        return {"frames": _sds((batch, max(seq // ENC_FRAMES_DIV, 16),
+                                cfg.enc_input_dim), torch.bfloat16, mesh,
+                               P(ba, None, None), fill)}
+    return {}
+
+
+@functools.lru_cache(maxsize=16)
+def _meta(cfg: ModelConfig) -> Tuple[tfm.LM, Any]:
+    """The meta-device LM of ``cfg`` and its parameter shape tree, made
+    outside any fake mode (so that every mode may read them) and kept
+    for the next case of the same config."""
+    from torch._subclasses.fake_tensor import unset_fake_temporarily
+    with unset_fake_temporarily():
+        model = tfm.meta_lm(cfg)
+        return model, tfm.stacked_params(model)
+
+
+def _param_shapes(cfg: ModelConfig, dtype=None):
+    """The LM's parameter shape tree (meta tensors, the JAX layout);
+    ``dtype`` replaces f32 (serving runs bf16 weights)."""
+    shapes = _meta(cfg)[1]
+    if dtype is not None:
+        shapes = tu.tree_map(
+            lambda s: s.to(dtype) if s.dtype == torch.float32 else s, shapes)
+    return shapes
+
+
+def _param_structs(cfg: ModelConfig, mesh, fsdp: bool, fill: Fill,
+                   dtype=None):
+    shapes = _param_shapes(cfg, dtype)
+    specs = partition.param_specs(cfg, shapes, mesh, fsdp=fsdp)
+    return _shard(shapes, specs, mesh, fill), specs
+
+
+def _like(leaf):
+    """A gradient hook: the gradient redistributed to ``leaf``'s placements
+    (a reduce-scatter of the partial sums of a weight the batch shares)."""
+    def hook(grad):
+        if grad.placements == leaf.placements:
+            return grad
+        return grad.redistribute(leaf.device_mesh, leaf.placements)
+    return hook
+
+
+def _grads(model, params, batch, remat: bool):
+    """``value_and_grad`` of ``tree_loss`` over a DTensor tree, each
+    gradient in its parameter's sharding, as JAX's are.  The gradient of
+    each layer's view of a stacked leaf is resharded as it arrives (a
+    hook), before the views' gradients are stacked: stacking them as
+    DTensor's partial sums would hold every layer's whole weight on every
+    rank."""
+    flat = tfm.module_params(params)
+    leaves = {k: v.detach().requires_grad_(True) for k, v in flat.items()}
+    for leaf in leaves.values():
+        leaf.register_hook(_like(leaf))
+    with torch.enable_grad():
+        loss = torch.func.functional_call(model, leaves, (batch,),
+                                          {"remat": remat}, strict=True)
+        got = dict(zip(leaves, torch.autograd.grad(
+            loss, list(leaves.values()), allow_unused=True,
+            materialize_grads=True)))
+
+    def grad(path, leaf):
+        rest = ".".join(map(str, path[1:]))
+        if path[0] in tfm.STACKED:
+            return torch.stack([got[f"{path[0]}.{i}.{rest}"]
+                                for i in range(leaf.shape[0])])
+        return got[".".join(map(str, path))]
+
+    return loss.detach(), tu.tree_map_with_path(grad, params)
+
+
+def build_train(cfg: ModelConfig, shape: ShapeConfig, mesh,
+                optim: str = "adamw", fsdp: bool = True,
+                remat: bool = True,
+                fill: Optional[Fill] = None) -> DryrunCase:
+    """One training step: ``tree_loss`` and its gradient (remat on by
+    default, as in JAX; :func:`_grads`), the global-norm clip, the
+    optimizer's update, ``apply_updates``."""
+    fill = fill or _zeros(mesh)
+    B, S = shape.global_batch, shape.seq_len
+    ba = partition.batch_axes(mesh, B)
+    params, pspecs = _param_structs(cfg, mesh, fsdp, fill)
+    oc = OptimConfig(kind=optim)
+    opt = make_optimizer(oc)
+    opt_shapes = opt.init(_param_shapes(cfg))
+    opt_state = _shard(opt_shapes, partition.opt_specs(pspecs, opt_shapes),
+                       mesh, fill)
+    batch = {
+        "tokens": _sds((B, S), torch.int32, mesh, P(ba, None), fill),
+        "labels": _sds((B, S), torch.int32, mesh, P(ba, None), fill),
+        **_extras_specs(cfg, B, S, mesh, ba, fill),
+    }
+    model = _meta(cfg)[0]
+
+    def train_step(params, opt_state, batch):
+        loss, grads = _grads(model, params, batch, remat)
+        grads, gnorm = clip_by_global_norm(grads, oc.grad_clip)
+        updates, opt_state = opt.update(grads, opt_state, params, oc.lr)
+        params = apply_updates(params, updates)
+        return params, opt_state, {"loss": loss, "gnorm": gnorm}
+
+    return DryrunCase(f"{cfg.name}:{shape.name}", train_step,
+                      (params, opt_state, batch),
+                      {"batch": B, "seq": S, "kind": "train",
+                       "donate": (0, 1)})
+
+
+def build_prefill(cfg: ModelConfig, shape: ShapeConfig, mesh,
+                  fsdp: bool = False,
+                  fill: Optional[Fill] = None) -> DryrunCase:
+    fill = fill or _zeros(mesh)
+    B, S = shape.global_batch, shape.seq_len
+    ba = partition.batch_axes(mesh, B)
+    params, _ = _param_structs(cfg, mesh, fsdp, fill, dtype=torch.bfloat16)
+    tokens = _sds((B, S), torch.int32, mesh, P(ba, None), fill)
+    extras = _extras_specs(cfg, B, S, mesh, ba, fill)
+    model = _meta(cfg)[0]
+
+    def prefill_step(params, tokens, extras):
+        with tfm.bound(model, params):
+            return tfm.prefill(model, tokens, extras=extras, max_len=S)
+
+    return DryrunCase(f"{cfg.name}:{shape.name}", prefill_step,
+                      (params, tokens, extras),
+                      {"batch": B, "seq": S, "kind": "prefill"})
+
+
+def build_decode(cfg: ModelConfig, shape: ShapeConfig, mesh,
+                 fsdp: bool = False, cache_seq_shard: bool = False,
+                 fill: Optional[Fill] = None) -> DryrunCase:
+    fill = fill or _zeros(mesh)
+    B, S = shape.global_batch, shape.seq_len
+    ba = partition.batch_axes(mesh, B)
+    params, _ = _param_structs(cfg, mesh, fsdp, fill, dtype=torch.bfloat16)
+    # sub-quadratic long-context serving: ring window cache for attention
+    window = SERVE_WINDOW if (S > 65536 and cfg.family != "ssm") else 0
+    model = _meta(cfg)[0]
+    cache_shapes = tfm.init_cache(model, B, S, window=window)
+    cspecs = partition.cache_specs(cfg, cache_shapes, mesh, B,
+                                   seq_shard=cache_seq_shard)
+    cache = _shard(cache_shapes, cspecs, mesh, fill)
+    token = _sds((B, 1), torch.int32, mesh, P(ba, None), fill)
+    pos = _sds((), torch.int32, mesh, P(), fill)
+    ring = bool(window)
+
+    def serve_step(params, cache, token, pos):
+        with tfm.bound(model, params):
+            return tfm.decode_step(model, cache, token, pos, ring=ring)
+
+    return DryrunCase(f"{cfg.name}:{shape.name}", serve_step,
+                      (params, cache, token, pos),
+                      {"batch": B, "seq": S, "kind": "decode",
+                       "window": window, "donate": (1,)})
+
+
+def scale_config(cfg: ModelConfig, n_blocks: int) -> ModelConfig:
+    """Variant of cfg with ``n_blocks`` scanned super-blocks (prefix and
+    remainder layers preserved): cost(k) = base + k * per_block exactly,
+    because the blocks are identical."""
+    per = len(cfg.pattern) if cfg.pattern else 1
+    prefix = cfg.moe.first_moe_layer if cfg.family == "moe" else 0
+    rem = len(cfg.remainder)
+    n_layers = prefix + per * n_blocks + rem
+    kw = {"n_layers": n_layers}
+    if cfg.family == "encdec":
+        kw["enc_layers"] = n_blocks
+    return dataclasses.replace(cfg, **kw)
+
+
+def build_sage_serve(cfg: ModelConfig, mesh, k_groups: int = 64,
+                     group_n: int = 4, no_tp: bool = False,
+                     fill: Optional[Fill] = None) -> DryrunCase:
+    """The paper's own serving step on the mesh: ONE shared-phase DDIM step
+    (CFG over K group latents) + ONE branch-phase step (K*N member
+    latents) of Alg. 1, at t = 800 -> 766.  Latents shard over (pod,
+    data); the DiT shards over model.  A CFG pair's rows are interleaved
+    (unconditional, conditional per latent) rather than stacked as two
+    halves: the same rows in another order, kept on the batch's shards
+    where stacking halves along a sharded dim would gather the batch."""
+    from repro_torch.core import samplers
+    from repro_torch.core.guidance import cfg_combine
+    from repro_torch.core.schedule import make_schedule
+    from repro_torch.models import dit as dit_lib
+
+    fill = fill or _zeros(mesh)
+    ba = partition.batch_axes(mesh, k_groups)
+    shapes = dit_lib.init_params(cfg, device="meta")
+    if no_tp:   # pure data parallel: the DiT replicated in bf16 and f32
+        specs = tu.tree_map(lambda s: P(*([None] * s.ndim)), shapes)
+    else:
+        specs = partition.param_specs(cfg, shapes, mesh, fsdp=False)
+    params = _shard(shapes, specs, mesh, fill)
+    H = cfg.latent_size
+    lat = P(ba, None, None, None)
+    z_shared = _sds((k_groups, H, H, cfg.latent_channels), torch.float32,
+                    mesh, lat, fill)
+    z_branch = _sds((k_groups * group_n, H, H, cfg.latent_channels),
+                    torch.float32, mesh, lat, fill)
+    cbar = _sds((k_groups, cfg.cond_len, cfg.cond_dim), torch.bfloat16, mesh,
+                P(ba, None, None), fill)
+    cm = _sds((k_groups * group_n, cfg.cond_len, cfg.cond_dim),
+              torch.bfloat16, mesh, P(ba, None, None), fill)
+
+    def pairs(a, b):
+        """(B, ...) x2 -> (2B, ...), rows a0, b0, a1, b1, ..."""
+        return torch.stack([a, b], 1).reshape((2 * a.shape[0],)
+                                              + tuple(a.shape[1:]))
+
+    def sage_step(params, z_s, z_b, cbar, cm):
+        sched = make_schedule(1000, device=z_s.device)
+
+        def cfg_eval(z, c, t):
+            B = z.shape[0]
+            tt = torch.full((2 * B,), t, dtype=torch.int32, device=z.device)
+            e = dit_lib.forward(params, cfg, pairs(z, z),
+                                tt, pairs(torch.zeros_like(c), c),
+                                remat=False)
+            e = e.reshape((B, 2) + tuple(e.shape[1:]))
+            return cfg_combine(e[:, 0], e[:, 1], 7.5)
+
+        t = torch.tensor(800, dtype=torch.int32, device=z_s.device)
+        tn = torch.tensor(766, dtype=torch.int32, device=z_s.device)
+        e_s = cfg_eval(z_s, cbar, 800)
+        z_s2 = samplers.ddim_step(sched, z_s, t, tn, e_s)
+        e_b = cfg_eval(z_b, cm, 800)
+        z_b2 = samplers.ddim_step(sched, z_b, t, tn, e_b)
+        return z_s2, z_b2
+
+    return DryrunCase(f"{cfg.name}:sage_serve", sage_step,
+                      (params, z_shared, z_branch, cbar, cm),
+                      {"batch": k_groups, "seq": group_n, "kind": "sage"})
+
+
+_ALLOWED_KW = {
+    "train": ("optim", "fsdp", "remat"),
+    "prefill": ("fsdp",),
+    "decode": ("fsdp", "cache_seq_shard"),
+    "sage": ("no_tp", "k_groups", "group_n"),
+}
+
+
+def build_case(arch: str, shape_name: str, mesh, smoke: bool = False,
+               n_blocks: Optional[int] = None,
+               attn_impl: Optional[str] = None,
+               attn_block: int = 0, fill: Optional[Fill] = None,
+               **kw) -> DryrunCase:
+    """The case ``arch`` x ``shape_name`` on ``mesh``.  ``attn_impl``
+    takes the port's names (``naive``, ``chunked``, ``kernel``: the JAX
+    package's ``pallas``); keywords a kind does not take are dropped."""
+    cfg = get_config(arch, smoke=smoke)
+    if n_blocks is not None:
+        cfg = scale_config(cfg, n_blocks)
+    if attn_impl:
+        cfg = dataclasses.replace(cfg, attn_impl=attn_impl)
+    if attn_block:
+        cfg = dataclasses.replace(cfg, attn_block=attn_block)
+    if shape_name == "sage_serve":
+        kw = {k: v for k, v in kw.items() if k in _ALLOWED_KW["sage"]}
+        return build_sage_serve(cfg, mesh, fill=fill, **kw)
+    shape = SHAPES[shape_name]
+    kw = {k: v for k, v in kw.items() if k in _ALLOWED_KW[shape.kind]}
+    if shape.kind == "train":
+        return build_train(cfg, shape, mesh, fill=fill, **kw)
+    if shape.kind == "prefill":
+        return build_prefill(cfg, shape, mesh, fill=fill, **kw)
+    return build_decode(cfg, shape, mesh, fill=fill, **kw)
+
+
+# ---------------------------------------------------------------------------
+# What DTensor needs to run the steps
+# ---------------------------------------------------------------------------
+
+def _gather_strategy(op_schema):
+    """``aten.gather`` without DTensor's masked-partial rule (a gather from
+    a tensor sharded on the gathered dim, as the loss's
+    ``take_along_dim`` on vocab-sharded logits does): that rule's mask
+    does not follow the ``[..., 0]`` that comes after, so the source is
+    gathered on that dim instead.  The rest are DTensor's own rules."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor._ops.utils import (
+        expand_to_full_mesh_op_strategy)
+    mesh = op_schema.get_mesh_from_args()
+    inp, dim, index = op_schema.args_schema[:3]
+    dim = dim % inp.ndim
+    rules = [[Replicate()] * 3, [Shard(dim), Replicate(), Shard(dim)]]
+    if inp.ndim == index.ndim:
+        rules += [[Shard(d)] * 3 for d in range(inp.ndim) if d != dim]
+    return expand_to_full_mesh_op_strategy(mesh, op_schema, rules,
+                                           input_index=1)
+
+
+def _index_strategy(op_schema):
+    """``aten.index.Tensor`` (the embedding lookup ``embed[tokens]``, a
+    gather by index tensors): the output follows the indices' sharding
+    and the source is gathered whole.  DTensor's own rules also let the
+    source stay sharded on a dim it is not indexed on, which for the
+    embedding table sharded on ``d_model`` over ``data`` (FSDP) it takes
+    as the cheaper move for the one op, gathering the tokens instead:
+    every activation after it is then hidden-sharded on ``data`` and
+    batch-replicated, where the JAX dry run keeps the batch on ``data``."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor._ops.utils import (
+        expand_to_full_mesh_op_strategy)
+    mesh = op_schema.get_mesh_from_args()
+    indices = op_schema.args_schema[1].children
+    idx = [i for i in indices if i is not None]
+    dims = [d for d, i in enumerate(indices) if i is not None]
+    nb = max(i.ndim for i in idx)
+    consecutive = dims == list(range(dims[0], dims[0] + len(dims)))
+    insert = dims[0] if consecutive else 0
+    rules = [[Replicate()] * (2 + len(idx))]
+    for bd in range(nb):
+        rule = [Shard(insert + bd), Replicate()]
+        for i in idx:
+            off = nb - i.ndim
+            rule.append(Shard(bd - off) if bd >= off and i.shape[bd - off] > 1
+                        else Replicate())
+        rules.append(rule)
+    return expand_to_full_mesh_op_strategy(mesh, op_schema, rules,
+                                           input_index=1)
+
+
+def _index_copy_strategy(op_schema):
+    """``aten.index_copy(_)`` (a decode step's cache write at its
+    position): the destination and the source sharded alike on any dim
+    but the written one, the index whole.  DTensor has no rule of its
+    own, and its decomposition into ``index_put_`` cannot keep an
+    in-place destination's placement."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor._ops.utils import (
+        expand_to_full_mesh_op_strategy)
+    mesh = op_schema.get_mesh_from_args()
+    inp, dim = op_schema.args_schema[:2]
+    dim = dim % inp.ndim
+    rules = [[Replicate()] * 4]
+    rules += [[Shard(d), Shard(d), Replicate(), Shard(d)]
+              for d in range(inp.ndim) if d != dim]
+    return expand_to_full_mesh_op_strategy(
+        mesh, op_schema, rules, input_index=1,
+        inplace_op=op_schema.is_inplace_op())
+
+
+def _scatter_strategy(op_schema):
+    """``aten.scatter(_)`` with a source (the MoE's inverse permutation):
+    the destination, the index and the source sharded alike on any dim
+    but the scattered one, or everything whole; in place, the
+    destination's placement is kept."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor._ops.utils import (
+        expand_to_full_mesh_op_strategy)
+    inp, dim = op_schema.args_schema[:2]
+    dim = dim % inp.ndim
+    rules = [[Replicate()] * 4]
+    rules += [[Shard(d)] * 4 for d in range(inp.ndim) if d != dim]
+    return expand_to_full_mesh_op_strategy(
+        op_schema.get_mesh_from_args(), op_schema, rules, input_index=1,
+        inplace_op=op_schema.is_inplace_op())
+
+
+def _new_zeros_strategy(op_schema):
+    """``aten.new_zeros`` (the backward of a gather makes the source's
+    zeros from the gradient): sharded like ``self`` on any dim the new
+    shape keeps, or whole.  DTensor's own rule follows ``self`` only when
+    the shapes are equal, so the backward of the loss's gather from the
+    logits left every rank the whole (batch, seq, vocab) zeros in f32."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor._ops.utils import (
+        expand_to_full_mesh_op_strategy)
+    inp, size = op_schema.args_schema[:2]
+    # only sharded where it can be: a replicated ``self`` (the mean's
+    # gradient) costs nothing to shard, but DTensor takes a plan that
+    # moves nothing over one that moves nothing at no cost
+    rules = [[Shard(d)] * 2 for d in range(min(inp.ndim, len(size)))
+             if inp.shape[d] == size[d]] or [[Replicate()] * 2]
+    return expand_to_full_mesh_op_strategy(
+        op_schema.get_mesh_from_args(), op_schema, rules, input_index=1)
+
+
+def _logsumexp_strategy(op_schema):
+    """``aten.logsumexp`` (the loss's normaliser over the vocab): sharded
+    on a dim it does not reduce, or whole; DTensor's own rule gathers the
+    reduced dim (every rank the whole vocab) where an all-to-all onto the
+    batch moves a sixteenth of it."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor._ops.utils import (
+        expand_to_full_mesh_op_strategy)
+    inp, dims = op_schema.args_schema[:2]
+    keep = len(op_schema.args_schema) > 2 and op_schema.args_schema[2]
+    dims = {d % inp.ndim for d in dims}
+    rules = [[Replicate()] * 2]
+    for d in range(inp.ndim):
+        if d not in dims:
+            out = d if keep else d - sum(r < d for r in dims)
+            rules.append([Shard(out), Shard(d)])
+    return expand_to_full_mesh_op_strategy(
+        op_schema.get_mesh_from_args(), op_schema, rules, input_index=1)
+
+
+def _pad_strategy(op_schema):
+    """``aten.constant_pad_nd`` (the causal conv's left pad): sharded alike
+    on any dim it does not pad, or whole."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor._ops.utils import (
+        expand_to_full_mesh_op_strategy)
+    inp, pad = op_schema.args_schema[:2]
+    padded = range(inp.ndim - len(pad) // 2, inp.ndim)
+    rules = [[Replicate()] * 2]
+    rules += [[Shard(d)] * 2 for d in range(inp.ndim) if d not in padded]
+    return expand_to_full_mesh_op_strategy(
+        op_schema.get_mesh_from_args(), op_schema, rules, input_index=1)
+
+
+def _conv_strategy(op_schema):
+    """``aten.convolution`` (the SSM's and the RG-LRU's depthwise causal
+    conv): the batch sharded or everything whole.  DTensor's own handler
+    for it (a tensor-parallel conv with halo exchange) skips the
+    redistribution its rules ask for, so a channel-sharded input met
+    the whole depthwise weight."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor._op_schema import OpStrategy
+    from torch.distributed.tensor._ops.utils import (
+        expand_to_full_mesh_op_strategy)
+    n = 3 if isinstance(op_schema.args_schema[2], OpStrategy) else 2
+    rules = [[Replicate()] * (1 + n),
+             [Shard(0), Shard(0)] + [Replicate()] * (n - 1)]
+    return expand_to_full_mesh_op_strategy(
+        op_schema.get_mesh_from_args(), op_schema, rules, input_index=1)
+
+
+def _conv_backward_strategy(op_schema):
+    """``aten.convolution_backward``, the twin of :func:`_conv_strategy`:
+    with the batch sharded the weight's and bias's gradients are partial
+    sums."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor._ops.utils import (
+        expand_to_full_mesh_op_strategy)
+    bias = op_schema.args_schema[3] is not None
+    rules = [[Replicate(), Replicate(), Replicate() if bias else None]
+             + [Replicate()] * 3,
+             [Shard(0), Partial(), Partial() if bias else None,
+              Shard(0), Shard(0), Replicate()]]
+    out = expand_to_full_mesh_op_strategy(
+        op_schema.get_mesh_from_args(), op_schema, rules, input_index=3)
+    for spec in out.strategies:     # torch 2.11 takes a missing output
+        spec.output_specs = list(spec.output_specs)   # only in a list
+    return out
+
+
+def _flip_strategy(op_schema):
+    """``aten.flip`` (a cumsum's backward, in the SSD scan's segment
+    sums): sharded alike on a dim it does not flip, or whole; torch 2.11
+    has no rule for it."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor._ops.utils import (
+        expand_to_full_mesh_op_strategy)
+    inp, dims = op_schema.args_schema[:2]
+    dims = {d % inp.ndim for d in dims}
+    rules = [[Replicate()] * 2]
+    rules += [[Shard(d)] * 2 for d in range(inp.ndim) if d not in dims]
+    return expand_to_full_mesh_op_strategy(
+        op_schema.get_mesh_from_args(), op_schema, rules, input_index=1)
+
+
+def _index_put_strategy(op_schema):
+    """``aten.index_put(_)`` (the embedding's gradient, a ring cache's
+    write): DTensor 2.13's own rules, for every torch version (2.11's
+    rule refuses the placements it is handed): the index tensors whole,
+    ``self`` and the output sharded alike on a dim that is not indexed,
+    with ``values`` sharded on the dim that lands there (or whole where
+    it is broadcast), or all partial but the indices, or all whole; in
+    place, ``self``'s placement is kept."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor._ops.utils import (
+        expand_to_full_mesh_op_strategy)
+    inp, indices, values = op_schema.args_schema[:3]
+    indices = getattr(indices, "children", indices)   # a list holding None
+    indexed = [d for d, i in enumerate(indices) if i is not None]
+    n = len(indexed)
+    bnd = max((indices[d].ndim for d in indexed), default=0)
+    contiguous = not indexed or indexed[-1] - indexed[0] + 1 == n
+    free = [d for d in range(inp.ndim) if d not in indexed]
+    rules = [[Replicate()] * (3 + n), [Partial(), Partial()]
+             + [Replicate()] * n + [Partial()]]
+    for i, d in enumerate(free):
+        if contiguous and indexed:
+            vd = d if d < indexed[0] else d - n + bnd
+        else:
+            vd = bnd + i
+        vd -= bnd + len(free) - values.ndim
+        vp = (Shard(vd) if vd >= 0 and values.shape[vd] != 1
+              else Replicate())
+        rules.append([Shard(d), Shard(d)] + [Replicate()] * n + [vp])
+    if len(op_schema.args_strategy) == 2:
+        # torch 2.11 hands a list of indices holding None over as no
+        # strategy at all: self and values only
+        rules = [r[:2] + r[2 + n:] for r in rules]
+    return expand_to_full_mesh_op_strategy(
+        op_schema.get_mesh_from_args(), op_schema, rules, input_index=1,
+        inplace_op=op_schema.is_inplace_op())
+
+
+def _searchsorted_strategy(op_schema):
+    """``aten.searchsorted.Tensor`` (the MoE's group-wise routing: each
+    token group searches its own sorted expert ids): the sorted sequence,
+    the values and the output sharded alike on a leading (group) dim, or
+    all whole."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor._ops.utils import (
+        expand_to_full_mesh_op_strategy)
+    seq = op_schema.args_schema[0]
+    rules = [[Replicate()] * 3]
+    rules += [[Shard(d)] * 3 for d in range(seq.ndim - 1)]
+    return expand_to_full_mesh_op_strategy(
+        op_schema.get_mesh_from_args(), op_schema, rules, input_index=1)
+
+
+def _matmul_strategy(op_schema):
+    """``aten.mm`` / ``aten.bmm``: every plan of DTensor's own rules
+    (rows, columns, the contraction split into partial sums, a partial
+    operand passed through, the batch of a ``bmm``, or everything whole)
+    expanded over the mesh, so that the choice among them can weigh the
+    product's compute (:func:`_compute_us`), which DTensor's search over
+    its rules does not."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor._ops.utils import (
+        expand_to_full_mesh_op_strategy)
+    b = op_schema.args_schema[0].ndim - 2      # 1 for a bmm's batch dim
+    rules = [[Replicate()] * 3,
+             [Shard(b), Shard(b), Replicate()],
+             [Shard(b + 1), Replicate(), Shard(b + 1)],
+             [Partial(), Shard(b + 1), Shard(b)],
+             [Partial(), Partial(), Replicate()],
+             [Partial(), Replicate(), Partial()]]
+    if b:
+        rules.append([Shard(0)] * 3)
+    return expand_to_full_mesh_op_strategy(
+        op_schema.get_mesh_from_args(), op_schema, rules, input_index=1)
+
+
+def _compute_us(op_spec) -> float:
+    """The microseconds a matmul plan computes on one rank at the H100's
+    bf16 datasheet rate: its FLOPs over the mesh dims on which an input
+    is sharded (on the others every rank does the whole product)."""
+    import math
+    from torch.distributed.tensor import Shard
+    from torch.distributed.tensor.placement_types import _StridedShard
+    from repro_torch.launch.costs import PEAK_FLOPS
+    a, b = op_spec.input_specs
+    flops = 2 * math.prod(a.shape) * b.shape[-1]
+    mesh = a.mesh
+    for i in range(mesh.ndim):
+        if any(isinstance(s.placements[i], (Shard, _StridedShard))
+               for s in op_spec.input_specs):
+            flops /= mesh.size(i)
+    return flops / PEAK_FLOPS * 1e6
+
+
+def _moved(x, dims, batch: bool):
+    """An op schema's arguments with every DTensor spec's placement on the
+    mesh dims ``dims`` replaced: by ``Shard(0)`` (``batch``; None where a
+    dim 0 cannot take it evenly) or by ``Replicate()``."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor._dtensor_spec import DTensorSpec
+    if isinstance(x, DTensorSpec):
+        places = list(x.placements)
+        for i in dims:
+            places[i] = Replicate()
+        if batch:
+            if not x.shape:
+                return None
+            ways = 1
+            for i, p in enumerate(places):
+                if i in dims or (isinstance(p, Shard) and p.dim == 0):
+                    ways *= x.mesh.size(i)
+            if x.shape[0] % ways:
+                return None
+            for i in dims:
+                places[i] = Shard(0)
+        return DTensorSpec(x.mesh, tuple(places), tensor_meta=x.tensor_meta)
+    if isinstance(x, (list, tuple)):
+        out = [_moved(v, dims, batch) for v in x]
+        if any(o is None and v is not None for o, v in zip(out, x)):
+            return None
+        return type(x)(out)
+    return x
+
+
+def _contiguous_strides(shape) -> Tuple[int, ...]:
+    strides, n = [], 1
+    for d in reversed(tuple(shape)):
+        strides.append(n)
+        n *= d
+    return tuple(reversed(strides))
+
+
+def _local_numel(spec) -> int:
+    """The elements of this rank's shard of a DTensor spec (computed with
+    every dispatch mode off: it reads index values)."""
+    import math
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset)
+    from torch.utils._python_dispatch import _disable_current_modes
+    with _disable_current_modes():
+        shape, _ = compute_local_shape_and_global_offset(
+            spec.shape, spec.mesh, spec.placements)
+    return math.prod(shape)
+
+
+def _fallbacks(ndim: int):
+    """The moves tried in order, as (mesh dims, batch): each mesh dim from
+    the last (``model``) resharded onto dim 0, else replicated; then all
+    replicated."""
+    out = []
+    for i in reversed(range(ndim)):
+        out += [((i,), True), ((i,), False)]
+    return out + [(tuple(range(ndim)), False)]
+
+
+class StrategyFault(RuntimeError):
+    """An error raised in one of this module's DTensor strategies: a fault
+    of the dry run, never taken for a missing plan."""
+
+
+class _NoPlan(ValueError):
+    """A plan of DTensor's that :func:`dtensor_rules` refuses."""
+
+
+def _faults_raise(strategy):
+    """``strategy`` with any error it raises made a
+    :class:`StrategyFault`."""
+    @functools.wraps(strategy)
+    def run(op_schema):
+        try:
+            return strategy(op_schema)
+        except Exception as e:
+            raise StrategyFault(f"{strategy.__name__} on {op_schema.op}: "
+                                f"{type(e).__name__}: {e}") from e
+    return run
+
+
+def _raised_at(e: BaseException) -> Tuple[pathlib.PurePath, int]:
+    """The file and line where ``e`` was raised."""
+    tb = e.__traceback__
+    while tb.tb_next is not None:
+        tb = tb.tb_next
+    return pathlib.PurePath(tb.tb_frame.f_code.co_filename), tb.tb_lineno
+
+
+def _no_plan(e: BaseException) -> bool:
+    """Whether ``e`` is DTensor saying it has no plan for an op at its
+    placements: raised in DTensor's own package (no strategy registered,
+    or a rule that cannot take the placements), or a refusal of
+    :func:`dtensor_rules` (:class:`_NoPlan`).  Anything else (an op's
+    shapes that do not fit, a :class:`StrategyFault`) is raised."""
+    if isinstance(e, StrategyFault):
+        return False
+    if isinstance(e, _NoPlan):
+        return True
+    parts = _raised_at(e)[0].parts
+    return ("torch", "distributed", "tensor") in zip(parts, parts[1:],
+                                                     parts[2:])
+
+
+@dataclasses.dataclass
+class Fallbacks:
+    """The ops that took :func:`dtensor_rules`' fallback, by name, with
+    the first error DTensor gave for each (``why``); ``whole``: those of
+    them that then ran whole on every rank of a mesh of more than one,
+    their sharded inputs gathered, because no move found a plan (a view,
+    which does no work, is not counted there: its gather is a counted
+    collective)."""
+    taken: collections.Counter = dataclasses.field(
+        default_factory=collections.Counter)
+    whole: collections.Counter = dataclasses.field(
+        default_factory=collections.Counter)
+    why: Dict[str, str] = dataclasses.field(default_factory=dict)
+
+    def refuse_whole(self) -> None:
+        """Raise if an op ran whole on every rank: the step's count would
+        be this torch version's gap in DTensor's op coverage."""
+        if self.whole:
+            raise RuntimeError(
+                f"torch {torch.__version__}: DTensor found no plan for "
+                f"{dict(self.whole)}, so every rank ran them whole; the "
+                "count would not be the sharded step's.  Register a "
+                "strategy in launch/specs.py.  DTensor said: "
+                + "; ".join(f"{op}: {self.why.get(op, '')}"
+                            for op in self.whole))
+
+
+@contextlib.contextmanager
+def dtensor_rules():
+    """What DTensor needs to run the dry-run steps, for the duration of the
+    block; yields the :class:`Fallbacks` of the ops that took the
+    fallback below.
+
+    * ``implicit_replication``: a plain tensor the model makes (a RoPE
+      table, a mask, an index) counts as replicated;
+    * DTensor's plans are weighed at the roofline's NVLink rate
+      (``launch/costs.py``, every mesh dim; DTensor's own model takes
+      87.7 GB/s, and a fifth of it across hosts), and a matmul's plan
+      also by the time its product takes on one rank at the bf16 peak
+      (:func:`_compute_us`): weighing bytes alone, DTensor keeps an
+      activation partial and all-gathers the weight, so every ``model``
+      rank computes the whole product;
+    * the strategies of this module for ``aten.gather``, ``aten.index``,
+      ``aten.index_copy(_)``, ``aten.convolution`` and its backward
+      (whose tensor-parallel handler DTensor's dispatcher skips too),
+      ``aten.mm``, ``aten.bmm``, ``aten.scatter(_)``,
+      ``aten.searchsorted``, ``aten.index_put(_)``, ``aten.flip``,
+      ``aten.constant_pad_nd``, ``aten.new_zeros`` and
+      ``aten.logsumexp``;
+    * the fallback: where DTensor has no strategy for an op, or its rule
+      cannot take the op's placements (a head split of a dim sharded
+      wider than the heads, a view of a layout it cannot express), the
+      inputs are resharded over one mesh dim (``model`` first, then
+      ``data``, then ``pod``): onto their dim 0 (the batch) where it
+      divides, else replicated; else they are replicated over all of
+      them, and the op runs on what each rank then holds.  The moves are
+      the dry run's collectives and the replicated work is each rank's:
+      nothing leaves the counts.  Only DTensor's own refusals take this
+      path (:func:`_no_plan`); an op with sharded inputs that ends up
+      whole on every rank is noted in ``whole``
+      (:meth:`Fallbacks.refuse_whole`);
+    * a reshard from one dim to another is an all-to-all, as on NCCL
+      (DTensor takes a CPU mesh for gloo's, which has none, and
+      all-gathers the whole tensor instead);
+    * DTensor's own bookkeeping runs with every dispatch mode off: the
+      op it runs on global-shaped fake tensors to learn an output's
+      shape, which no rank computes, and ``_StridedShard``'s shard sizes
+      (which read index values; kept, as they depend on shapes only).
+    """
+    from torch.utils._python_dispatch import _disable_current_modes
+    from torch.distributed.tensor import DTensor, Replicate
+    from torch.distributed.tensor import placement_types as pt
+    from torch.distributed.tensor._dtensor_spec import DTensorSpec, TensorMeta
+    from torch.distributed.tensor._op_schema import (OpSchema, OutputSharding,
+                                                    RuntimeSchemaInfo)
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    aten = torch.ops.aten
+    dispatcher = DTensor._op_dispatcher
+    prop = dispatcher.sharding_propagator
+    fallbacks = Fallbacks()
+    plain = prop.propagate_op_sharding_non_cached
+
+    views = (aten.view.default, aten._unsafe_view.default)
+
+    def mesh_of(op_schema):
+        """The mesh of the op's first DTensor argument (an op whose first
+        argument is a scalar, ``pow.Scalar``, has its DTensor later)."""
+        return next(s.mesh for s in torch.utils._pytree.tree_leaves(
+            (op_schema.args_schema, op_schema.kwargs_schema))
+            if isinstance(s, DTensorSpec))
+
+    def checked(op_schema):
+        """DTensor's sharding of ``op_schema``, refused where a spec has not
+        a placement for each mesh dim (a decomposition's plan over a
+        one-dim mesh, in some torch versions) or, for a view, unless the
+        input's shard and the output's hold as many elements (DTensor can
+        split an unflattened dim sharded wider than its new leading dim
+        so that they do not)."""
+        out = plain(op_schema)
+        mesh = mesh_of(op_schema)
+        specs = [s for s in torch.utils._pytree.tree_leaves(
+            (out.output_spec, out.redistribute_schema.args_schema
+             if out.redistribute_schema else ()))
+                 if isinstance(s, DTensorSpec)]
+        if any(len(s.placements) != mesh.ndim for s in specs):
+            raise _NoPlan(f"{op_schema.op}: a plan over part of the mesh")
+        if op_schema.op in views:
+            src = (out.redistribute_schema or op_schema).args_schema[0]
+            if _local_numel(src) != _local_numel(out.output_spec):
+                raise _NoPlan(f"{op_schema.op}: the shards of {src} "
+                              f"and {out.output_spec} differ")
+        return out
+
+    def sharded(op_schema) -> bool:
+        """Whether an op that does work has a sharded input (a view does
+        none: its gather is a counted collective)."""
+        specs = [s for s in torch.utils._pytree.tree_leaves(
+            (op_schema.args_schema, op_schema.kwargs_schema))
+                 if isinstance(s, DTensorSpec)]
+        return op_schema.op not in views and any(
+            not (p.is_replicate() or p.is_partial())
+            for s in specs for p in s.placements)
+
+    def propagate(op_schema):
+        try:
+            return checked(op_schema)
+        except Exception as e:  # noqa: BLE001 (sorted by _no_plan)
+            if (op_schema.op is aten._local_scalar_dense.default
+                    or not _no_plan(e)):
+                raise
+            path, line = _raised_at(e)
+            why = f"{type(e).__name__} at {path.name}:{line}: {e}"
+        mesh = mesh_of(op_schema)
+        name = str(op_schema.op)
+        fallbacks.taken[name] += 1
+        fallbacks.why.setdefault(name, why.splitlines()[0][:300])
+        if op_schema.op in views:
+            # a view of a layout its strides cannot give (an einsum's
+            # permuted operand): placed as the contiguous copy a reshape
+            # makes, which the rank then takes (dryrun.LocalCounter)
+            src = op_schema.args_schema[0]
+            m = src.tensor_meta
+            cont = OpSchema(op_schema.op, (DTensorSpec(
+                src.mesh, src.placements, tensor_meta=TensorMeta(
+                    m.shape, _contiguous_strides(m.shape), m.dtype)),)
+                + tuple(op_schema.args_schema[1:]), op_schema.kwargs_schema,
+                schema_info=op_schema.schema_info)
+            try:
+                out = checked(cont)
+            except Exception as e:  # noqa: BLE001 (sorted by _no_plan)
+                if not _no_plan(e):
+                    raise
+            else:
+                return OutputSharding(
+                    out.output_spec,
+                    redistribute_schema=out.redistribute_schema or cont,
+                    needs_redistribute=True,
+                    use_val_from_redistribute_schema=(
+                        out.use_val_from_redistribute_schema))
+        for dims, batch in _fallbacks(mesh.ndim):
+            args = _moved(op_schema.args_schema, dims, batch)
+            kwargs = {k: _moved(v, dims, batch)
+                      for k, v in op_schema.kwargs_schema.items()}
+            if args is None or any(v is None for v in kwargs.values()):
+                continue
+            rep = OpSchema(op_schema.op, args, kwargs,
+                           schema_info=op_schema.schema_info)
+            try:
+                out = checked(rep)
+            except Exception as e:  # noqa: BLE001 (sorted by _no_plan)
+                if not _no_plan(e):
+                    raise
+                continue
+            if len(dims) == mesh.ndim and mesh.size() > 1 and sharded(
+                    op_schema):
+                fallbacks.whole[name] += 1
+            return OutputSharding(
+                out.output_spec,
+                redistribute_schema=out.redistribute_schema or rep,
+                needs_redistribute=True,
+                use_val_from_redistribute_schema=(
+                    out.use_val_from_redistribute_schema))
+        # no strategy at all: the op runs whole on each rank
+        if mesh.size() > 1 and sharded(op_schema):
+            fallbacks.whole[name] += 1
+        meta = meta_quiet(rep)
+
+        def spec(m):
+            return None if m is None else DTensorSpec(
+                mesh, (Replicate(),) * mesh.ndim, tensor_meta=m)
+
+        out = (spec(meta) if meta is None or isinstance(meta, TensorMeta)
+               else tuple(spec(m) for m in meta))
+        return OutputSharding(out, redistribute_schema=rep,
+                              needs_redistribute=True)
+
+    strided = pt._StridedShard.local_shard_size_and_offset
+    sizes: Dict[Any, Any] = {}
+
+    def strided_sizes(self, *args, **kwargs):
+        key = (self.dim, self.split_factor, args,
+               tuple(sorted(kwargs.items())))
+        if key not in sizes:
+            with _disable_current_modes():
+                sizes[key] = strided(self, *args, **kwargs)
+        return sizes[key]
+
+    meta_of = prop._propagate_tensor_meta_non_cached
+
+    def meta_quiet(op_schema):
+        with _disable_current_modes():
+            return meta_of(op_schema)
+
+    from torch.distributed.tensor import _collective_utils, _sharding_prop
+    from repro_torch.launch.costs import NVLINK_BW
+    topo = _collective_utils.MeshTopoInfo
+    build_topo = topo.__dict__["build_from_mesh"]
+
+    def nvlink_topo(mesh):
+        return topo(mesh, [mesh.size(i) for i in range(mesh.ndim)],
+                    [NVLINK_BW / 1e9] * mesh.ndim, [0.6] * mesh.ndim)
+
+    select = _sharding_prop._select_min_cost_strategy
+    matmuls = (aten.mm.default, aten.bmm.default)
+
+    def select_with_compute(strategy, op_schema=None):
+        if (op_schema is not None and op_schema.op in matmuls
+                and len(strategy.strategies) > 1):
+            for spec in strategy.strategies:
+                spec.redistribute_cost[0] = [
+                    c + _compute_us(spec) for c in spec.redistribute_cost[0]]
+        return select(strategy, op_schema)
+
+    from torch.distributed import _functional_collectives as funcol
+
+    def alltoall(tensor, gather_dim, shard_dim, mesh, mesh_dim):
+        return torch.ops._dtensor.shard_dim_alltoall(
+            tensor, gather_dim, shard_dim,
+            funcol._resolve_group_name((mesh, mesh_dim)))
+
+    gloo_alltoall = pt.shard_dim_alltoall
+    handlers = dispatcher._custom_op_handlers
+    conv = (aten.convolution.default, aten.convolution_backward.default)
+    saved_handlers = {op: handlers.pop(op) for op in conv if op in handlers}
+    ours = {aten.gather.default: _gather_strategy,
+            aten.index.Tensor: _index_strategy,
+            aten.index_copy.default: _index_copy_strategy,
+            aten.index_copy_.default: _index_copy_strategy,
+            aten.convolution.default: _conv_strategy,
+            aten.convolution_backward.default: _conv_backward_strategy,
+            aten.mm.default: _matmul_strategy,
+            aten.bmm.default: _matmul_strategy,
+            aten.searchsorted.Tensor: _searchsorted_strategy,
+            aten.flip.default: _flip_strategy,
+            aten.index_put.default: _index_put_strategy,
+            aten.index_put_.default: _index_put_strategy,
+            aten.scatter.src: _scatter_strategy,
+            aten.scatter_.src: _scatter_strategy,
+            aten.constant_pad_nd.default: _pad_strategy,
+            aten.new_zeros.default: _new_zeros_strategy,
+            aten.logsumexp.default: _logsumexp_strategy}
+    saved = {op: (prop.op_strategy_funcs.get(op),
+                  prop.op_single_dim_strategy_funcs.pop(op, None),
+                  prop.op_to_schema_info.get(op))
+             for op in ours}
+    prop.op_strategy_funcs.update(
+        {op: _faults_raise(f) for op, f in ours.items()})
+    for op in (aten.index.Tensor, aten.index_put.default,
+               aten.index_put_.default):
+        prop.op_to_schema_info[op] = RuntimeSchemaInfo(needs_pytree=True)
+    for op in (aten.index_copy.default, aten.index_copy_.default,
+               aten.scatter.src, aten.scatter_.src):
+        prop.op_to_schema_info[op] = RuntimeSchemaInfo(static_argnum=1)
+    for op in (aten.convolution.default, aten.convolution_backward.default):
+        prop.op_to_schema_info[op] = RuntimeSchemaInfo(static_argnum=3)
+    for op in (aten.logsumexp.default, aten.flip.default):
+        prop.op_to_schema_info[op] = RuntimeSchemaInfo(static_argnum=1)
+    prop.op_to_schema_info[aten.searchsorted.Tensor] = RuntimeSchemaInfo(
+        static_kwargkey=["out_int32", "right", "side"])
+    for op in (aten.constant_pad_nd.default, aten.new_zeros.default):
+        prop.op_to_schema_info[op] = RuntimeSchemaInfo(
+            static_argnum=1, static_kwargkey=["dtype"])
+    cached = prop.propagate_op_sharding
+    prop.propagate_op_sharding_non_cached = propagate
+    prop.propagate_op_sharding = type(cached)(propagate)
+    prop._propagate_tensor_meta_non_cached = meta_quiet
+    _sharding_prop._select_min_cost_strategy = select_with_compute
+    topo.build_from_mesh = staticmethod(nvlink_topo)
+    pt.shard_dim_alltoall = alltoall
+    pt._StridedShard.local_shard_size_and_offset = strided_sizes
+    try:
+        with implicit_replication():
+            yield fallbacks
+    finally:
+        pt._StridedShard.local_shard_size_and_offset = strided
+        _sharding_prop._select_min_cost_strategy = select
+        topo.build_from_mesh = build_topo
+        pt.shard_dim_alltoall = gloo_alltoall
+        prop.propagate_op_sharding = cached
+        del prop.propagate_op_sharding_non_cached
+        del prop._propagate_tensor_meta_non_cached
+        for op, (f, single, info) in saved.items():
+            for table, v in ((prop.op_strategy_funcs, f),
+                             (prop.op_single_dim_strategy_funcs, single),
+                             (prop.op_to_schema_info, info)):
+                if v is None:
+                    table.pop(op, None)
+                else:
+                    table[op] = v
+        handlers.update(saved_handlers)

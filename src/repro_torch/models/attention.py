@@ -119,7 +119,9 @@ def gqa_prefill(p: Mapping[str, torch.Tensor], cfg: ModelConfig,
     out = dispatch.attention(q, k, v, impl=cfg.attn_impl, causal=True,
                              window=window, block=cfg.attn_block,
                              scale=1.0 / math.sqrt(cfg.hd))
-    cache = gqa_cache_init(cfg, B, max_len, k.dtype, x.device)
+    # the cache is made like k (dtype, device and, for a DTensor, layout)
+    shp = (B, max_len, cfg.n_kv_heads, cfg.hd)
+    cache = {"k": k.new_zeros(shp), "v": v.new_zeros(shp)}
     if window and max_len == window and S >= window:
         slots = torch.arange(S - window, S, device=x.device) % window
         cache["k"][:, slots] = k[:, -window:]
@@ -288,7 +290,9 @@ def mla_prefill(p, cfg: ModelConfig, x: torch.Tensor, *, max_len: int
     ckv, kr = _mla_ckv(p, cfg, x, pos)
     out = _mla_attend(p, cfg, q, ckv, kr,
                       causal_mask(S, S, device=x.device))
-    cache = mla_cache_init(cfg, B, max_len, ckv.dtype, x.device)
+    # the cache is made like the latents (dtype, device, DTensor layout)
+    cache = {"ckv": ckv.new_zeros((B, max_len, ckv.shape[-1])),
+             "kr": kr.new_zeros((B, max_len, kr.shape[-1]))}
     cache["ckv"][:, :S] = ckv
     cache["kr"][:, :S] = kr
     return out, cache

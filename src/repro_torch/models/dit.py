@@ -111,13 +111,14 @@ class DiT(nn.Module):
     """The denoiser.  Weights are f32 (d_in, d_out); activations run in
     ``cfg.dtype``.  ``device`` defaults to CUDA and raises without a GPU;
     the initial weights come from ``generator`` (seeded 0 on ``device``
-    when not given)."""
+    when not given).  On the meta device nothing is drawn: the shapes
+    only, as ``jax.eval_shape`` gives them."""
 
     def __init__(self, cfg: ModelConfig, *, device="cuda",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         device = resolve_device(device)
-        if generator is None:
+        if generator is None and device.type != "meta":
             generator = torch.Generator(device=device).manual_seed(0)
         self.cfg = cfg
         d = cfg.d_model

@@ -14,6 +14,8 @@ forward_train(model, tokens, extras=, remat=)       -> (logits (B,S,V), aux)
 lm_loss(model, batch, remat=)                       -> scalar loss
 stacked_params(model)                               -> params  (JAX layout)
 tree_loss(model, params, batch, remat=)             -> lm_loss over params
+bound(model, params)                                -> model with params (ctx)
+module_params(params)                               -> {dotted name: view}
 meta_lm(cfg)                                        -> shapes only (eval_shape)
 encode(model, frames, remat=)                       -> encoder memory
 init_cache(model, batch, max_len, dtype=, window=)  -> zero cache
@@ -37,10 +39,12 @@ LM and raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
+from torch.nn.utils.stateless import _reparametrize_module
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
@@ -389,6 +393,19 @@ def _activations(model: LM, x) -> torch.Tensor:
         getattr(torch, model.cfg.dtype))
 
 
+def _remat(fn, module: nn.Module, *args):
+    """``checkpoint(fn, module, *args)`` with the module's parameters as
+    the checkpoint's inputs, rebound when the backward recomputes: the
+    recomputation sees the weights the forward saw, also where they were
+    bound only for the forward (:func:`tree_loss`, whose
+    ``functional_call`` has put the module's own back by then)."""
+    def run(params, *args):
+        with _reparametrize_module(module, params):
+            return fn(module, *args)
+    return checkpoint(run, dict(module.named_parameters()), *args,
+                      use_reentrant=False)
+
+
 def encode(model: LM, frames, remat: bool = False) -> torch.Tensor:
     """The encdec encoder: frames (B, T, enc_input_dim) -> memory (B, T,
     d_model), bidirectional self-attention with RoPE (through the kernel
@@ -398,7 +415,7 @@ def encode(model: LM, frames, remat: bool = False) -> torch.Tensor:
     x = dot(_activations(model, frames), model.enc_in)
     for bm in model.enc_blocks:
         if remat and torch.is_grad_enabled():
-            x = checkpoint(_enc_layer, bm["l0"], cfg, x, use_reentrant=False)
+            x = _remat(_enc_layer, bm["l0"], cfg, x)
         else:
             x = _enc_layer(bm["l0"], cfg, x)
     return rms_norm(x, model.enc_ln, cfg.rms_eps)
@@ -447,8 +464,7 @@ def forward_train(model: LM, tokens, extras: Optional[Dict[str, Any]] = None,
             aux = aux + a
     for bm in model.blocks:
         if remat and torch.is_grad_enabled():
-            x, a = checkpoint(_block, bm, cfg, x, memory, ssd_impl,
-                              use_reentrant=False)
+            x, a = _remat(_block, bm, cfg, x, memory, ssd_impl)
         else:
             x, a = _block(bm, cfg, x, memory, ssd_impl)
         aux = aux + a
@@ -602,7 +618,7 @@ def stacked_params(model: LM) -> Dict[str, Any]:
     return tree
 
 
-def _module_params(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+def module_params(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """A JAX-layout tree as the module's dotted parameter names: each
     stacked leaf unbound into per-layer views (``blocks.{i}.<leaf>``), so
     the gradient of a stacked leaf comes back as one stacked tensor."""
@@ -624,9 +640,19 @@ def tree_loss(model: LM, params: Dict[str, Any], batch: Dict[str, Any],
     of which it must give: the JAX ``lm_loss(params, cfg, batch)``, and
     differentiable in ``params``.  ``model`` only supplies the structure,
     so it may live on the meta device (:func:`meta_lm`)."""
-    return torch.func.functional_call(model, _module_params(params),
+    return torch.func.functional_call(model, module_params(params),
                                       (batch,), {"remat": remat},
                                       strict=True)
+
+
+@contextlib.contextmanager
+def bound(model: LM, params: Dict[str, Any]):
+    """``model`` with ``params`` (the JAX layout, every weight) in place of
+    its own weights while the block runs: the JAX functions that take
+    ``params`` (``prefill``, ``decode_step``) over a parameter tree, which
+    may hold DTensors."""
+    with _reparametrize_module(model, module_params(params), strict=True):
+        yield model
 
 
 def meta_lm(cfg: ModelConfig) -> LM:

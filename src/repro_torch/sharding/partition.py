@@ -238,12 +238,31 @@ def placements(spec: PartitionSpec, mesh) -> list:
     return out
 
 
-def shard_tree(tree, specs, mesh):
+def shard_tree(tree, specs, mesh, src_data_rank: Optional[int] = 0):
     """Each tensor of ``tree`` distributed over the ``DeviceMesh`` by its
     spec (``distribute_tensor``): the DTensor counterpart of JAX's
-    ``NamedSharding``."""
-    from torch.distributed.tensor import distribute_tensor
-    return tu.tree_map(
-        lambda leaf, spec: distribute_tensor(leaf, mesh,
-                                             placements(spec, mesh)),
-        tree, specs)
+    ``NamedSharding``.  ``src_data_rank`` is ``distribute_tensor``'s: the
+    rank whose values every rank takes, or None where each rank holds the
+    same values already and keeps its own shard of them, with no
+    communication.  A fake tensor (``FakeTensorMode``: the dry run) holds
+    no values, so its shard is made at its local shape rather than cut
+    from it, which would make every rank's chunk."""
+    from torch._subclasses.fake_tensor import is_fake
+    from torch.distributed.tensor import DTensor, distribute_tensor
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset)
+    from torch.utils._python_dispatch import _disable_current_modes
+
+    def one(leaf, spec):
+        places = placements(spec, mesh)
+        if not is_fake(leaf):
+            return distribute_tensor(leaf, mesh, places,
+                                     src_data_rank=src_data_rank)
+        with _disable_current_modes():      # it reads index values
+            shape, _ = compute_local_shape_and_global_offset(
+                leaf.shape, mesh, places)
+        out = DTensor.from_local(leaf.new_empty(shape), mesh, places,
+                                 run_check=False, shape=leaf.shape,
+                                 stride=leaf.stride())
+        return out.requires_grad_(leaf.requires_grad)
+    return tu.tree_map(one, tree, specs)

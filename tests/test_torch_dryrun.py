@@ -1,0 +1,424 @@
+"""The port's dry run (``repro_torch.launch.specs`` / ``dryrun``) held to
+the JAX package's: ``n_active_params`` for every registered config,
+``scale_config`` and ``_n_blocks_full`` for every assigned arch, the
+dry run's JSON keys (read from the JAX module's source: importing it sets
+``XLA_FLAGS``) and its model-FLOP formula, at smoke size on a fake 16x16
+group: a train (dense), a prefill (MoE), a decode (SSM) and the SAGE
+step.  Also: the FLOP count is linear in the blocks exactly (the JAX dry
+run's k1/k2 extrapolation), the collective bytes of known
+redistributions, and the refusals.  Every process group made here is
+destroyed.
+
+Against XLA's own numbers: in a child process with 512 host devices
+(the JAX dry run's count), the JAX builders' phi3 ``train_4k`` and
+``sage_serve`` at smoke size are compiled on a 16x16 mesh of Auto axes
+(jax 0.9's ``make_mesh`` gives Explicit axes, on which
+``repro.launch.dryrun.run_case`` raises ``ShardingTypeError``), and
+their ``memory_analysis`` and ``cost_analysis`` read back.  The port's
+runs of the same cases on a fake 16x16 group must match the argument
+bytes exactly and the per-device FLOPs within +-25%;
+``repro_torch.launch.roofline`` must print what ``repro.launch.roofline``
+prints over the port's JSONs, in both views."""
+import ast
+import contextlib
+import dataclasses
+import io
+import json
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+import torch.distributed as dist
+
+from repro.config import get_config as jax_get_config
+from repro.config import list_archs as jax_list_archs
+from repro.configs import ASSIGNED
+from repro.launch import specs as jax_specs
+from repro_torch import tree as tu
+from repro_torch.config import get_config, list_archs
+from repro_torch.launch import dryrun, specs
+from repro_torch.launch.mesh import make_production_mesh
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+#: one case of each kind over the dense, MoE and SSM families and SAGE
+CASES = (("phi3-mini-3.8b", "train_4k"),
+         ("deepseek-v2-lite-16b", "prefill_32k"),
+         ("mamba2-780m", "decode_32k"),
+         ("sage-dit", "sage_serve"))
+
+
+#: the cases compiled by XLA, with the builder keywords of both sides: the
+#: JAX DiT scans its blocks (``repro/models/dit.py``'s ``lax.scan``, which
+#: ``unroll`` does not reach) and XLA's cost analysis counts a loop body
+#: once, so at the smoke depth of 2 blocks XLA counts one (the port's
+#: count was 1.80x XLA's there); at 1 block both count the whole step
+XLA_CASES = {"phi3-mini-3.8b:train_4k": {},
+             "sage-dit:sage_serve": {"n_blocks": 1}}
+#: port / XLA per-device FLOPs (``cost_analysis``), measured: 0.838
+#: (phi3) and 0.683 (sage, 25,477,120 / 37,293,092).  The port counts
+#: the matmuls only (``torch.utils.flop_counter``), and they equal the
+#: FLOPs of the dots in XLA's partitioned HLO exactly (checked below);
+#: XLA also counts the elementwise ops, reductions and transcendentals,
+#: which at the smoke width (d_model 128) are 32% of sage's step, hence
+#: sage's band below 0.75
+FLOP_BANDS = {"phi3-mini-3.8b:train_4k": (0.75, 1.25),
+              "sage-dit:sage_serve": (0.683 * 0.75, 1.25)}
+
+XLA_SIDE = r"""
+import json, math, os, re, sys
+os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "")
+                           + " --xla_force_host_platform_device_count=512")
+import jax
+from jax.sharding import AxisType
+from repro.launch.specs import build_case
+mesh = jax.make_mesh((16, 16), ("data", "model"),
+                     axis_types=(AxisType.Auto,) * 2,
+                     devices=jax.devices()[:256])
+out = {}
+for name, kw in json.loads(sys.argv[1]).items():
+    arch, shape = name.split(":")
+    case = build_case(arch, shape, mesh, smoke=True, unroll=True, **kw)
+    with mesh:
+        c = jax.jit(case.fn, donate_argnums=case.static.get("donate", ())
+                    ).lower(*case.args).compile()
+    cost = c.cost_analysis()
+    cost = cost[0] if isinstance(cost, (list, tuple)) else cost
+    hlo = c.as_text()
+    shapes = dict((m[0], [int(d) for d in m[1].split(",") if d])
+                  for m in re.findall(r"%?([\w.-]+) = \w+\[([\d,]*)\]", hlo))
+    dots = 0
+    for o, a, k in re.findall(r"%?([\w.-]+) = \w+\[[\d,]*\]\S* "
+                              r"dot\(%?([\w.-]+), [^)]*\).*?"
+                              r"lhs_contracting_dims=\{([\d,]*)\}", hlo):
+        dots += 2 * math.prod(shapes[o]) * math.prod(
+            shapes[a][int(i)] for i in k.split(",") if i)
+    assert " convolution(" not in hlo
+    out[name] = {
+        "flops": float(cost["flops"]), "dot_flops": dots,
+        "argument_size_in_bytes": c.memory_analysis().argument_size_in_bytes}
+print(json.dumps(out))
+"""
+
+
+def _jax_result_keys():
+    """The keys of the JAX dry run's result dict (``res`` in ``run_case``,
+    plus ``bottleneck``), from its source."""
+    tree = ast.parse((ROOT / "src/repro/launch/dryrun.py").read_text())
+    fn = next(n for n in ast.walk(tree)
+              if isinstance(n, ast.FunctionDef) and n.name == "run_case")
+    for node in ast.walk(fn):
+        if (isinstance(node, ast.Assign) and isinstance(node.value, ast.Dict)
+                and getattr(node.targets[0], "id", "") == "res"):
+            keys = {k.value for k in node.value.keys}
+    return keys | {"bottleneck"}
+
+
+def _jax_n_blocks_full(cfg):
+    """``repro.launch.dryrun._n_blocks_full`` (that module is not imported:
+    it sets XLA_FLAGS)."""
+    per = len(cfg.pattern) if cfg.pattern else 1
+    prefix = cfg.moe.first_moe_layer if cfg.family == "moe" else 0
+    return (cfg.n_layers - prefix - len(cfg.remainder)) // per
+
+
+def _jax_model_flops(arch, shape_name, static):
+    """``repro.launch.dryrun.run_case``'s model-FLOP formula on the JAX
+    config."""
+    from repro.config import SHAPES as JAX_SHAPES
+    cfg = jax_get_config(arch, smoke=True)
+    if shape_name == "sage_serve":
+        K, N = static["batch"], static["seq"]
+        n_lat = (cfg.latent_size // cfg.patch) ** 2
+        return 2.0 * cfg.n_params() * 2 * (K + K * N) * n_lat
+    s = JAX_SHAPES[shape_name]
+    tokens = s.global_batch * (s.seq_len if s.kind != "decode" else 1)
+    mf = 6.0 * cfg.n_active_params() * tokens
+    return mf * 3.0 if s.kind == "train" else mf
+
+
+@pytest.mark.parametrize("arch", sorted(jax_list_archs()))
+def test_n_active_params_equals_jax(arch):
+    assert sorted(list_archs()) == sorted(jax_list_archs())
+    assert (get_config(arch).n_active_params()
+            == jax_get_config(arch).n_active_params())
+
+
+@pytest.mark.parametrize("arch", ASSIGNED)
+def test_scale_config_and_n_blocks_equal_jax(arch):
+    for nb in (1, 2, 5):
+        got = specs.scale_config(get_config(arch), nb)
+        want = jax_specs.scale_config(jax_get_config(arch), nb)
+        assert (got.n_layers, got.enc_layers) == (want.n_layers,
+                                                  want.enc_layers)
+        assert dryrun._n_blocks_full(got) == _jax_n_blocks_full(want) == nb
+    assert (dryrun._n_blocks_full(get_config(arch))
+            == _jax_n_blocks_full(jax_get_config(arch)))
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """The smoke cases run once each on a fake 16x16 group (as
+    ``run_case``), phi3 ``train_4k`` at 1 and 3 blocks (its
+    smoke config has 2) and the SAGE step at 1 block; meanwhile XLA's
+    numbers of :data:`XLA_CASES`, in a child process (``xla``)."""
+    out = tmp_path_factory.mktemp("dryrun")
+    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=str(ROOT / "src"))
+    child = subprocess.Popen(
+        [sys.executable, "-c", XLA_SIDE, json.dumps(XLA_CASES)], cwd=ROOT,
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        res = {"dir": str(out)}
+        for arch, shape in CASES:
+            res[arch, shape] = dryrun.run_case(arch, shape, False,
+                                               smoke=True, outdir=str(out))
+        # a variant's JSON for the roofline's variants view
+        variant = dict(res["sage-dit", "sage_serve"], variant="dp_only")
+        (out / "sage-dit_sage_serve_16x16_dp_only.json").write_text(
+            json.dumps(variant))
+        with dryrun.fake_group(256):
+            mesh = make_production_mesh(device_type="cpu")
+            res["blocks"] = {nb: dryrun.measure(
+                "phi3-mini-3.8b", "train_4k", mesh, smoke=True,
+                kw={"n_blocks": nb})["flops"] for nb in (1, 3)}
+            res["sage:1"] = dryrun.measure(
+                "sage-dit", "sage_serve", mesh, smoke=True,
+                kw=XLA_CASES["sage-dit:sage_serve"])
+        res["blocks"][2] = res["phi3-mini-3.8b", "train_4k"]["flops_per_dev"]
+        assert not dist.is_initialized()
+        stdout, stderr = child.communicate(timeout=600)
+    finally:
+        child.kill()
+    assert child.returncode == 0, stderr[-3000:]
+    res["xla"] = json.loads(stdout.strip().splitlines()[-1])
+    return res
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_smoke_run_keys_and_model_flops_equal_jax(runs, case):
+    res = runs[case]
+    assert set(res) == _jax_result_keys()
+    assert res["model_flops_global"] == _jax_model_flops(*case,
+                                                         res["static"])
+    assert res["chips"] == 256 and res["mesh"] == "16x16"
+    assert res["flops_per_dev"] > 0 and res["bytes_per_dev"] > 0
+    mem = res["memory_analysis"]
+    assert mem["argument_size_in_bytes"] > 0
+    assert mem["temp_size_in_bytes"] >= 0
+    assert res["bottleneck"] in ("compute", "memory", "collective")
+    assert res["collective_bytes_per_dev"]["total"] == sum(
+        v for k, v in res["collective_bytes_per_dev"].items()
+        if k != "total")
+
+
+def test_flops_are_linear_in_the_blocks(runs):
+    """The JAX dry run's k1/k2 extrapolation (k1, k2 = 1, 2 at phi3's
+    smoke depth of 2 blocks) gives the counted FLOPs exactly: at the full
+    depth and at 3 blocks."""
+    f = runs["blocks"]
+    nb_full = dryrun._n_blocks_full(get_config("phi3-mini-3.8b", smoke=True))
+    assert nb_full == 2 and specs.scale_config(
+        get_config("phi3-mini-3.8b", smoke=True), 2) == get_config(
+            "phi3-mini-3.8b", smoke=True)
+    k1, k2 = 1, 2
+    body = (f[k2] - f[k1]) / (k2 - k1)
+    base = f[k1] - k1 * body
+    assert body > 0 and base > 0
+    assert runs["phi3-mini-3.8b", "train_4k"]["flops_per_dev"] == (
+        base + nb_full * body)
+    assert f[3] == base + 3 * body
+
+
+def test_collective_bytes_of_known_redistributions():
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.distributed.tensor import (DTensor, Partial, Replicate, Shard,
+                                          distribute_tensor)
+    with dryrun.fake_group(256):
+        mesh = make_production_mesh(device_type="cpu")
+        with FakeTensorMode():
+            x = distribute_tensor(torch.empty(1024, 512), mesh,
+                                  [Shard(0), Replicate()])
+            # all-gather over data: each rank ends with the whole 2 MiB
+            got = dryrun.collective_bytes(
+                x.redistribute, mesh, [Replicate(), Replicate()])
+            assert got == {"all-gather": 1024 * 512 * 4,
+                           "total": 1024 * 512 * 4}
+            p = DTensor.from_local(torch.empty(1024, 512), mesh,
+                                   [Replicate(), Partial()], run_check=False)
+            # reduce-scatter over model: each rank keeps 1/16 of the sum
+            got = dryrun.collective_bytes(
+                p.redistribute, mesh, [Replicate(), Shard(0)])
+            assert got == {"reduce-scatter": 1024 * 512 * 4 // 16,
+                           "total": 1024 * 512 * 4 // 16}
+            # all-reduce over model: each rank keeps the whole sum
+            got = dryrun.collective_bytes(
+                p.redistribute, mesh, [Replicate(), Replicate()])
+            assert got == {"all-reduce": 1024 * 512 * 4,
+                           "total": 1024 * 512 * 4}
+    assert not dist.is_initialized()
+
+
+def test_refusals(tmp_path):
+    with pytest.raises(ValueError, match="kernel"):
+        dryrun.run_case("phi3-mini-3.8b", "train_4k", False, smoke=True,
+                        outdir=str(tmp_path),
+                        builder_kw={"attn_impl": "kernel"})
+    assert not dist.is_initialized()
+    with dryrun.fake_group(1):
+        with pytest.raises(RuntimeError, match="256"):
+            dryrun.run_case("phi3-mini-3.8b", "train_4k", False, smoke=True,
+                            outdir=str(tmp_path))
+        assert dist.get_world_size() == 1
+    assert not dist.is_initialized()
+    assert not list(tmp_path.iterdir())
+
+
+def test_jsons_render_through_the_roofline(runs, capsys):
+    """Each run's JSON is on disk under its JAX tag, and the port's
+    roofline renders a row of it."""
+    import json
+    from repro_torch.launch import roofline
+    d = pathlib.Path(runs["dir"])
+    for arch, shape in CASES:
+        on_disk = json.loads((d / f"{arch}_{shape}_16x16.json").read_text())
+        assert on_disk == json.loads(json.dumps(runs[arch, shape]))
+    roofline.main(["--dir", str(d)])
+    rows = capsys.readouterr().out.splitlines()
+    assert len(rows) == 2 + 4
+    assert "| phi3-mini-3.8b | train_4k |" in rows[2 + 2]
+
+
+def test_tree_loss_remat_backward_uses_the_given_weights():
+    """The dry run's train step differentiates ``tree_loss`` with remat
+    on over a meta skeleton: the backward's recomputation must read the
+    tree it was given (it once read the module's own, meta, weights), so
+    the gradients equal remat off's."""
+    from repro_torch.core.trainer import value_and_grad
+    from repro_torch.models import transformer as tfm
+    cfg = dataclasses.replace(get_config("phi3-mini-3.8b", smoke=True),
+                              dtype="float32")
+    params = tfm.stacked_params(tfm.LM(cfg, device="cpu"))
+    model = tfm.meta_lm(cfg)
+    gen = torch.Generator().manual_seed(0)
+    tokens = torch.randint(0, cfg.vocab, (2, 16), generator=gen)
+    batch = {"tokens": tokens, "labels": tokens.roll(-1, 1)}
+    got = {r: value_and_grad(lambda p: tfm.tree_loss(model, p, batch,
+                                                     remat=r), params)
+           for r in (False, True)}
+    assert torch.equal(got[True][0], got[False][0])
+    for path, g in tu.flatten_with_path(got[True][1]):
+        want = dict(tu.flatten_with_path(got[False][1]))[path]
+        torch.testing.assert_close(g, want, rtol=1e-5, atol=1e-6)
+
+
+def _port_against_xla(runs, case):
+    """The port's per-device FLOPs and argument bytes of an XLA case."""
+    if XLA_CASES[case]:
+        m = runs["sage:1"]
+        return m["flops"], m["memory_analysis"]["argument_size_in_bytes"]
+    r = runs[tuple(case.split(":"))]
+    return (r["flops_per_dev"],
+            r["memory_analysis"]["argument_size_in_bytes"])
+
+
+@pytest.mark.parametrize("case", list(XLA_CASES))
+def test_argument_bytes_equal_xla(runs, case):
+    assert (_port_against_xla(runs, case)[1]
+            == runs["xla"][case]["argument_size_in_bytes"])
+
+
+@pytest.mark.parametrize("case", list(XLA_CASES))
+def test_flops_per_device_near_xla(runs, case):
+    flops = _port_against_xla(runs, case)[0]
+    assert flops == runs["xla"][case]["dot_flops"]
+    ratio = flops / runs["xla"][case]["flops"]
+    lo, hi = FLOP_BANDS[case]
+    assert lo <= ratio <= hi, ratio
+
+
+@pytest.mark.parametrize("variants", [False, True])
+def test_roofline_prints_what_jax_prints(runs, variants):
+    from repro.launch import roofline as jax_roofline
+    from repro_torch.launch import roofline
+    argv = ["--dir", runs["dir"]] + (["--variants"] if variants else [])
+
+    def printed(main):
+        buf = io.StringIO()
+        old = sys.argv
+        sys.argv = ["roofline"] + argv
+        try:
+            with contextlib.redirect_stdout(buf):
+                main()
+        finally:
+            sys.argv = old
+        return buf.getvalue()
+
+    want = printed(jax_roofline.main)
+    assert printed(roofline.main) == want
+    assert "| sage-dit | sage_serve |" in want
+
+
+@torch.library.custom_op("dryrun_test::twice", mutates_args=())
+def _twice(x: torch.Tensor) -> torch.Tensor:
+    """An op DTensor has no strategy for."""
+    return x * 2
+
+
+@_twice.register_fake
+def _(x):
+    return torch.empty_like(x)
+
+
+@pytest.mark.parametrize("sharded", [False, True])
+def test_an_op_without_a_plan_is_refused_where_sharded(sharded):
+    """An op with no DTensor plan at any placement runs whole on every
+    rank: where its input was sharded, that is noted and refused (the
+    count would be the torch version's op coverage, not the sharded
+    step's); on a replicated input it is what every plan does."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    places = [Shard(0), Shard(1)] if sharded else [Replicate()] * 2
+    with dryrun.fake_group(256):
+        mesh = make_production_mesh(device_type="cpu")
+        with FakeTensorMode(allow_non_fake_inputs=True), \
+                specs.dtensor_rules() as fb:
+            x = distribute_tensor(torch.zeros(256, 64), mesh, places)
+            with dryrun.LocalCounter() as c:
+                _twice(x)
+    name = "dryrun_test.twice.default"
+    assert fb.taken[name] >= 1
+    assert "does not have a sharding strategy" in fb.why[name]
+    if not sharded:
+        assert not fb.whole and c.collectives() == {"total": 0}
+        fb.refuse_whole()
+        return
+    assert fb.whole == {name: 1}
+    # gathered over model (this data shard's 16 rows), then over data
+    gathered = 16 * 64 * 4 + 256 * 64 * 4
+    assert c.collectives() == {"all-gather": gathered, "total": gathered}
+    with pytest.raises(RuntimeError, match="no plan for .*twice"):
+        fb.refuse_whole()
+    assert not dist.is_initialized()
+
+
+def test_a_fault_in_a_strategy_is_raised(monkeypatch):
+    """An error in one of ``specs``' own strategies is a fault of the dry
+    run, not a missing plan: it is raised, and nothing falls back."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.distributed.tensor import Shard, distribute_tensor
+
+    def broken(op_schema):
+        raise IndexError("a bug")
+    monkeypatch.setattr(specs, "_flip_strategy", broken)
+    with dryrun.fake_group(256):
+        mesh = make_production_mesh(device_type="cpu")
+        with FakeTensorMode(allow_non_fake_inputs=True), \
+                specs.dtensor_rules() as fb:
+            x = distribute_tensor(torch.zeros(256, 64), mesh,
+                                  [Shard(0), Shard(1)])
+            with pytest.raises(RuntimeError, match="broken on aten.flip"):
+                torch.flip(x, (0,))
+    assert not fb.taken and not fb.whole
+    assert not dist.is_initialized()
