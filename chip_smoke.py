@@ -205,10 +205,16 @@ without the result line:
    run only), and the metrics (``fd_r``, ``clip_proxy``,
    ``group_diversity``) card vs CPU within 1e-5;
 5g. dryrun — the dry run (``repro_torch.launch.dryrun``): ``run_case`` at
-   full size on a fake 16x16 group for ``DRYRUN_CASES``, in child
-   processes (each result line printed; the JSONs under
+   full size on a fake 16x16 group for ``DRYRUN_CASES`` (the SAGE step,
+   phi3 ``decode_32k``, mamba2 ``train_4k`` and the ``prefill_32k`` of
+   recurrentgemma-2b, with its ring write, and of granite-20b, with its
+   multi-query attention), in child processes of at most
+   ``DRYRUN_CHILD_S`` s (each result line printed; the JSONs under
    ``experiments/dryrun_torch``; a case in which a sharded op found no
-   DTensor plan and ran whole on every rank fails); meanwhile
+   DTensor plan and ran whole on every rank fails); each case's FLOPs
+   and collective bytes a device by kind must equal ``DRYRUN_EXPECTED``,
+   the counts of torch 2.13 (each printed beside its expected one in a
+   ``[dryrun:expected]`` line; any difference fails); meanwhile
    ``sage-dit`` ``sage_serve`` at full width with ``DRYRUN_SAGE`` (8
    groups of 4: 80 rows of 1024 tokens over the two CFG evaluations) on a
    one-process ``nccl`` group and a 1x1 mesh, seeded, on the dry run's
@@ -5617,7 +5623,41 @@ def phase_lm_train(failures):
 
 # the dry run's full-size cases on the fake 16x16 group
 DRYRUN_CASES = (("sage-dit", "sage_serve"), ("phi3-mini-3.8b", "decode_32k"),
-                ("mamba2-780m", "train_4k"))
+                ("mamba2-780m", "train_4k"), ("recurrentgemma-2b", "prefill_32k"),
+                ("granite-20b", "prefill_32k"))
+# what each of them counts a device (FLOPs, collective bytes by kind), as
+# `python -m repro_torch.launch.dryrun --arch A --shape S` wrote them on a
+# CPU with torch 2.13.0+cpu; the plan is the dry run's own
+# (launch/specs.dtensor_rules), so another torch must count the same
+DRYRUN_EXPECTED = {
+    ("sage-dit", "sage_serve"): {
+        "flops_per_dev": 3057490575360.0,
+        "collective_bytes_per_dev": {
+            "all-gather": 3186233344, "all-reduce": 7746387968,
+            "reduce-scatter": 523469312, "all-to-all": 60954624,
+            "total": 11517045248}},
+    ("phi3-mini-3.8b", "decode_32k"): {
+        "flops_per_dev": 10164830208.0,
+        "collective_bytes_per_dev": {
+            "all-gather": 204767232, "reduce-scatter": 196608,
+            "all-reduce": 2048, "total": 204965888}},
+    ("mamba2-780m", "train_4k"): {
+        "flops_per_dev": 42362688503808.0,
+        "collective_bytes_per_dev": {
+            "all-gather": 14623041536, "reduce-scatter": 220111488,
+            "all-reduce": 8226860, "all-to-all": 789358592,
+            "total": 15640738476}},
+    ("recurrentgemma-2b", "prefill_32k"): {
+        "flops_per_dev": 29358949662720.0,
+        "collective_bytes_per_dev": {
+            "all-gather": 54126501888, "reduce-scatter": 1090519040,
+            "all-to-all": 167772160, "total": 55384793088}},
+    ("granite-20b", "prefill_32k"): {
+        "flops_per_dev": 332997479890944.0,
+        "collective_bytes_per_dev": {
+            "all-gather": 169114337280, "reduce-scatter": 5234491392,
+            "total": 174348828672}},
+}
 # sage_serve on one card: K cut from 64 to 8 groups of N = 4 (80 rows of
 # 1024 tokens over the two CFG evaluations; at K = 64 the naive scores
 # alone would need ~43 GB)
@@ -5731,12 +5771,28 @@ def phase_dryrun(failures):
             res = json.loads((out / f"{arch}_{shape}_16x16.json")
                              .read_text())
             log(f"[dryrun:{arch}:{shape}] {json.dumps(res)}")
+            _dryrun_expected(failures, arch, shape, res)
 
     try:
         launches = _dryrun_on_card(failures, settle)
     finally:
         settle()
     return {"dryrun": launches}
+
+
+def _dryrun_expected(failures, arch, shape, res):
+    """One child's FLOPs and collective bytes a device held to
+    ``DRYRUN_EXPECTED`` (torch 2.13's): any difference fails."""
+    import torch
+    want = DRYRUN_EXPECTED[arch, shape]
+    got = {"flops_per_dev": res["flops_per_dev"],
+           "collective_bytes_per_dev": res["collective_bytes_per_dev"]}
+    for key in got:
+        log(f"[dryrun:expected] {arch}:{shape} {key}: {got[key]} "
+            f"(torch {torch.__version__}), want {want[key]} (torch 2.13)")
+    if got != want:
+        failures.append(f"dryrun {arch}:{shape}: torch {torch.__version__} "
+                        f"counts {got}, torch 2.13 {want}")
 
 
 def _dryrun_on_card(failures, settle):

@@ -121,6 +121,7 @@ class LocalCounter(TorchDispatchMode):
         from torch.utils.flop_counter import flop_registry
         self._flops_of = flop_registry
         self.flops = 0
+        self.flops_by_op: Dict[str, int] = {}
         self.bytes = 0
         self.coll: Dict[str, int] = {}
         self.live = 0
@@ -169,7 +170,9 @@ class LocalCounter(TorchDispatchMode):
             self.bytes += sum(_nbytes(t) for t in _tensors(out))
         fn = self._flops_of.get(func._overloadpacket)
         if fn is not None:
-            self.flops += fn(*args, **kwargs, out_val=out)
+            n = fn(*args, **kwargs, out_val=out)
+            self.flops += n
+            self.flops_by_op[name] = self.flops_by_op.get(name, 0) + n
         if not func.is_view:
             for t in _tensors(out):
                 self._track(t, own=collective)
@@ -207,15 +210,16 @@ def collective_bytes(fn, *args, **kwargs) -> Dict[str, int]:
 
 def count_step(case: specs.DryrunCase) -> Dict[str, Any]:
     """Run ``case.fn(*case.args)`` once under a :class:`LocalCounter`:
-    the rank's FLOPs, bytes, collective bytes, memory analysis (JAX's
-    keys), the outputs and the seconds."""
+    the rank's FLOPs (also by op: ``flops_by_op``), bytes, collective
+    bytes, memory analysis (JAX's keys), the outputs and the seconds."""
     counter = LocalCounter()
     args_b = counter.hold(case.args)
     t0 = time.perf_counter()
     with counter:
         out = case.fn(*case.args)
     dt = time.perf_counter() - t0
-    return {"flops": counter.flops, "bytes": counter.bytes,
+    return {"flops": counter.flops, "flops_by_op": counter.flops_by_op,
+            "bytes": counter.bytes,
             "coll": counter.collectives(), "seconds": dt, "out": out,
             "memory_analysis": {
                 "argument_size_in_bytes": args_b,

@@ -4,6 +4,11 @@ package's ``launch/roofline.py``.
 
     PYTHONPATH=src python -m repro_torch.launch.roofline [--mesh 16x16]
     PYTHONPATH=src python -m repro_torch.launch.roofline --variants  # §Perf view
+    PYTHONPATH=src python -m repro_torch.launch.roofline --against DIR  # two runs
+
+``--against`` compares the runs of two dry runs case by case (another
+torch, another commit): what each counts a device that the other does
+not.
 
 The terms are the dry run's datasheet predictions (``launch/dryrun.py``),
 not measurements.
@@ -37,18 +42,64 @@ def markdown_table(rows, mesh="16x16", variant="baseline"):
     return "\n".join(out)
 
 
+#: what a dry run counts a device, compared by ``--against``
+COMPARED = ("flops_per_dev", "collective_bytes_per_dev")
+
+
+def differences(rows, others):
+    """The cases of two dry runs' JSONs, matched by arch, shape, mesh and
+    variant, whose FLOPs, collective bytes by kind or argument bytes a
+    device differ (a line each), and those only one of them ran; the
+    number of cases both ran that count the same, and of cases both
+    ran."""
+    def key(r):
+        return r["arch"], r["shape"], r["mesh"], r.get("variant", "baseline")
+
+    def counts(r):
+        out = {k: r[k] for k in COMPARED}
+        out["argument_size_in_bytes"] = r["memory_analysis"][
+            "argument_size_in_bytes"]
+        return out
+
+    mine, theirs = {key(r): r for r in rows}, {key(r): r for r in others}
+    lines = [f"{':'.join(k)}: only in {side}" for side, a, b in
+             (("this run", mine, theirs), ("the other", theirs, mine))
+             for k in sorted(a) if k not in b]
+    both = sorted(set(mine) & set(theirs))
+    same = 0
+    for k in both:
+        a, b = counts(mine[k]), counts(theirs[k])
+        lines += [f"{':'.join(k)}: {name} {a[name]} vs {b[name]}"
+                  for name in a if a[name] != b[name]]
+        same += a == b
+    return lines, same, len(both)
+
+
+def _load(directory):
+    rows = []
+    for f in sorted(glob.glob(f"{directory}/*.json")):
+        with open(f) as fh:
+            rows.append(json.load(fh))
+    return rows
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--mesh", default="16x16")
     ap.add_argument("--dir", default="experiments/dryrun_torch")
     ap.add_argument("--variants", action="store_true",
                     help="show §Perf variants next to their baselines")
+    ap.add_argument("--against", default=None,
+                    help="another run's JSON directory: print the cases "
+                         "whose counts differ")
     args = ap.parse_args(argv)
 
-    rows = []
-    for f in sorted(glob.glob(f"{args.dir}/*.json")):
-        with open(f) as fh:
-            rows.append(json.load(fh))
+    rows = _load(args.dir)
+    if args.against:
+        lines, same, n = differences(rows, _load(args.against))
+        print("\n".join(lines))
+        print(f"{same} of {n} cases count the same")
+        return
     if args.variants:
         keys = {(r["arch"], r["shape"]) for r in rows
                 if r.get("variant", "baseline") != "baseline"}

@@ -553,20 +553,21 @@ def _flip_strategy(op_schema):
 
 def _index_put_strategy(op_schema):
     """``aten.index_put(_)`` (the embedding's gradient, a ring cache's
-    write): DTensor 2.13's own rules, for every torch version (2.11's
-    rule refuses the placements it is handed): the index tensors whole,
-    ``self`` and the output sharded alike on a dim that is not indexed,
-    with ``values`` sharded on the dim that lands there (or whole where
-    it is broadcast), or all partial but the indices, or all whole; in
-    place, ``self``'s placement is kept."""
+    write): DTensor 2.13's own rules, for every torch version: the index
+    tensors whole, ``self`` and the output sharded alike on a dim that is
+    not indexed, with ``values`` sharded on the dim that lands there (or
+    whole where it is broadcast), or all partial but the indices, or all
+    whole; in place, ``self``'s placement is kept.  Expanded by
+    :func:`_expand`, which also takes torch 2.11's form of an index list
+    that holds None (its index tensors unwrapped, without a strategy:
+    2.11's own rule refused the ring write, and DTensor's expansion there
+    left those tensors out of the plan)."""
     from torch.distributed.tensor import Partial, Replicate, Shard
-    from torch.distributed.tensor._ops.utils import (
-        expand_to_full_mesh_op_strategy)
     inp, indices, values = op_schema.args_schema[:3]
     indices = getattr(indices, "children", indices)   # a list holding None
     indexed = [d for d, i in enumerate(indices) if i is not None]
     n = len(indexed)
-    bnd = max((indices[d].ndim for d in indexed), default=0)
+    bnd = max((len(indices[d].shape) for d in indexed), default=0)
     contiguous = not indexed or indexed[-1] - indexed[0] + 1 == n
     free = [d for d in range(inp.ndim) if d not in indexed]
     rules = [[Replicate()] * (3 + n), [Partial(), Partial()]
@@ -580,13 +581,7 @@ def _index_put_strategy(op_schema):
         vp = (Shard(vd) if vd >= 0 and values.shape[vd] != 1
               else Replicate())
         rules.append([Shard(d), Shard(d)] + [Replicate()] * n + [vp])
-    if len(op_schema.args_strategy) == 2:
-        # torch 2.11 hands a list of indices holding None over as no
-        # strategy at all: self and values only
-        rules = [r[:2] + r[2 + n:] for r in rules]
-    return expand_to_full_mesh_op_strategy(
-        op_schema.get_mesh_from_args(), op_schema, rules, input_index=1,
-        inplace_op=op_schema.is_inplace_op())
+    return _expand(op_schema, rules, uneven=False)
 
 
 def _searchsorted_strategy(op_schema):
@@ -608,79 +603,453 @@ def _matmul_strategy(op_schema):
     """``aten.mm`` / ``aten.bmm``: every plan of DTensor's own rules
     (rows, columns, the contraction split into partial sums, a partial
     operand passed through, the batch of a ``bmm``, or everything whole)
-    expanded over the mesh, so that the choice among them can weigh the
-    product's compute (:func:`_compute_us`), which DTensor's search over
-    its rules does not."""
+    expanded over the mesh (:func:`_expand`), a shard being a
+    ``_StridedShard`` where an operand holds one (the rows of an
+    einsum's merged dims, which then need no reshard), so that the choice
+    among them can weigh the product's compute (:func:`_compute_us`),
+    which DTensor's search over its rules does not."""
     from torch.distributed.tensor import Partial, Replicate, Shard
-    from torch.distributed.tensor._ops.utils import (
-        expand_to_full_mesh_op_strategy)
     b = op_schema.args_schema[0].ndim - 2      # 1 for a bmm's batch dim
-    rules = [[Replicate()] * 3,
-             [Shard(b), Shard(b), Replicate()],
-             [Shard(b + 1), Replicate(), Shard(b + 1)],
-             [Partial(), Shard(b + 1), Shard(b)],
+    rules = [[_Sh(b), _Sh(b), Replicate()],
+             [_Sh(b + 1), Replicate(), _Sh(b + 1)],
+             [Partial(), _Sh(b + 1), _Sh(b)],
              [Partial(), Partial(), Replicate()],
              [Partial(), Replicate(), Partial()]]
-    if b:
-        rules.append([Shard(0)] * 3)
-    return expand_to_full_mesh_op_strategy(
-        op_schema.get_mesh_from_args(), op_schema, rules, input_index=1)
+    if not b:
+        rules = [[Shard(p.dim) if isinstance(p, _Sh) else p for p in r]
+                 for r in rules]
+        return _expand(op_schema, rules, uneven=False, nest=False)
+    rules.append([_Sh(0)] * 3)
+    return _expand(op_schema, rules, uneven=False, nest=False, cost=_cost)
+
+
+class _Sh(NamedTuple):
+    """A placeholder in a one-mesh-dim rule: tensor dim ``dim`` sharded
+    the way the op's inputs shard (``Shard``, and ``_StridedShard`` of
+    each split factor an input holds)."""
+    dim: int
+
+
+def _tensor_specs(op_schema):
+    """The current spec of each tensor argument of an op schema, in order
+    (torch 2.11 leaves a DTensor in a list that also holds None, an index
+    list, as its spec, without a strategy)."""
+    from torch.distributed.tensor._dtensor_spec import DTensorSpec
+    from torch.distributed.tensor._op_schema import OpStrategy
+    out = []
+    for x in torch.utils._pytree.tree_leaves(
+            (op_schema.args_schema, list(op_schema.kwargs_schema.values()))):
+        if isinstance(x, OpStrategy):
+            out.append(x.strategies[0].output_spec)
+        elif isinstance(x, DTensorSpec):
+            out.append(x)
+    return out
+
+
+def _expand(op_schema, rules, uneven: bool = True, nest: bool = True,
+            cost=None):
+    """An ``OpStrategy`` from one-mesh-dim ``rules`` ([output, *tensor
+    arguments], placements or :class:`_Sh`): DTensor 2.13's expansion of a
+    single-dim strategy, the same on every torch version.  The
+    all-replicate rule is added where missing, placeholders are filled,
+    the rules are combined over the mesh dims, and a combination is
+    dropped where it mixes partial kinds, would move an in-place op's
+    ``self`` or output, or shards an input unevenly (``uneven``: kept where
+    the input is already so placed); each kept one is costed by DTensor's
+    own redistribution costs (or ``cost(src, dst)``).  Without ``nest``, a
+    combination that shards an input's dim over a second mesh dim is
+    dropped too: DTensor cannot view such a dim apart again (an einsum's
+    merged batch and heads), so a product that made one had its scores
+    gathered whole afterwards."""
+    import itertools
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor._collective_utils import redistribute_cost
+    from torch.distributed.tensor._dtensor_spec import DTensorSpec
+    from torch.distributed.tensor._op_schema import OpSpec, OpStrategy
+    from torch.distributed.tensor._ops.utils import is_tensor_shardable
+    from torch.distributed.tensor.placement_types import _StridedShard
+    cost = cost or redistribute_cost
+    current = _tensor_specs(op_schema)
+    width = 1 + len(current)
+    rules = [list(r) for r in rules if len(r) == width]
+    if not any(all(isinstance(p, Replicate) for p in r) for r in rules):
+        rules.insert(0, [Replicate()] * width)
+    held = [p for c in current for p in c.placements]
+    builders = [Shard] if any(type(p) is Shard for p in held) else []
+    builders += [functools.partial(_StridedShard, split_factor=f)
+                 for f in sorted({p.split_factor for p in held
+                                  if isinstance(p, _StridedShard)})]
+    filled = []
+    for r in rules:
+        if any(isinstance(p, _Sh) for p in r):
+            filled += [[b(p.dim) if isinstance(p, _Sh) else p for p in r]
+                       for b in builders]
+        else:
+            filled.append(r)
+    mesh = current[0].mesh
+    # a spec holding a _StridedShard takes the flag of the input that
+    # holds one (else its shard order is unknown and its cost infinite)
+    strided = next((c.use_strided_shard_as_shard_order for c in current
+                    if any(isinstance(p, _StridedShard)
+                           for p in c.placements)), None)
+
+    def spec(pl, meta=None):
+        flag = (strided if any(isinstance(p, _StridedShard) for p in pl)
+                else None)
+        return DTensorSpec(mesh, pl, tensor_meta=meta,
+                           use_strided_shard_as_shard_order=flag)
+
+    inplace = op_schema.is_inplace_op()
+    out = []
+    for comb in itertools.product(filled, repeat=mesh.ndim):
+        places = list(zip(*comb))
+        if any(_mixed_partials(pl) for pl in places):
+            continue
+        if inplace and not (places[0] == places[1]
+                            == current[0].placements):
+            continue
+        if not nest and any(_nested(pl) - _nested(c.placements)
+                            for pl, c in zip(places[1:], current)):
+            continue
+        if any(p.is_partial() and not q.is_partial()
+               for pl, c in zip(places[1:], current)
+               for p, q in zip(pl, c.placements)):
+            continue
+        ins = [spec(pl, c.tensor_meta) for pl, c in zip(places[1:], current)]
+        if not all(is_tensor_shardable(c.shape, s)
+                   or (uneven and c.placements == s.placements)
+                   for c, s in zip(current, ins)):
+            continue
+        out.append(OpSpec(output_specs=spec(places[0]), input_specs=ins,
+                          redistribute_cost=[[cost(c, d)] for c, d
+                                             in zip(current, ins)]))
+    return OpStrategy(out)
+
+
+def _cost(src, dst) -> float:
+    """DTensor's cost of redistributing ``src`` to ``dst``, but with a
+    ``_StridedShard`` costed as the ``Shard`` of its dim (DTensor costs
+    every move out of one at 0, so a plan that gathers a strided score
+    tensor looked free), and a move between the two on a mesh dim as
+    that dim's gather."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor._collective_utils import redistribute_cost
+    from torch.distributed.tensor._dtensor_spec import DTensorSpec
+    from torch.distributed.tensor.placement_types import _StridedShard
+    if not any(isinstance(p, _StridedShard)
+               for p in src.placements + dst.placements):
+        return redistribute_cost(src, dst)
+
+    def plain(pl):
+        return tuple(Shard(p.dim) if isinstance(p, _StridedShard) else p
+                     for p in pl)
+
+    def spec(pl):
+        return DTensorSpec(src.mesh, pl, tensor_meta=src.tensor_meta)
+
+    a, b = plain(src.placements), plain(dst.placements)
+    cost = redistribute_cost(spec(a), spec(b))
+    for i, (x, y) in enumerate(zip(src.placements, dst.placements)):
+        if x != y and a[i] == b[i]:
+            cost += redistribute_cost(
+                spec(a), spec(a[:i] + (Replicate(),) + a[i + 1:]))
+    return cost
+
+
+def _nested(placements) -> set:
+    """The tensor dims that ``placements`` shard over more than one mesh
+    dim."""
+    from torch.distributed.tensor import Shard
+    from torch.distributed.tensor.placement_types import _StridedShard
+    dims = [p.dim for p in placements
+            if isinstance(p, (Shard, _StridedShard))]
+    return {d for d in dims if dims.count(d) > 1}
+
+
+def _mixed_partials(placements) -> bool:
+    """Whether ``placements`` hold partials of more than one kind (sum
+    and avg of one type commute and may mix)."""
+    from torch.distributed.tensor import Partial
+    kinds = {(type(p), p.reduce_op) for p in placements
+             if isinstance(p, Partial)}
+    return len(kinds) > 1 and not (len({t for t, _ in kinds}) == 1 and {
+        r for _, r in kinds} == {"sum", "avg"})
+
+
+def _broadcast_map(common, shape):
+    """For each dim of the broadcast shape ``common``, the dim of
+    ``shape`` it comes from, or -1 where ``shape`` is broadcast."""
+    out = [-1] * len(common)
+    for i in range(1, len(shape) + 1):
+        if shape[-i] == common[-i]:
+            out[-i] = len(shape) - i
+    return out
+
+
+@functools.lru_cache(maxsize=1)
+def _partial_rules():
+    """The partial placements DTensor 2.13 lets each pointwise op keep
+    (``_ops/_pointwise_ops.py``): [output, *tensor inputs]."""
+    from torch.distributed.tensor import Partial, Replicate
+    aten = torch.ops.aten
+    P, R = Partial, Replicate
+    unary_linear = [[P("sum"), P("sum")], [P("avg"), P("avg")]]
+    additive = [[P("sum")] * 3, [P("avg")] * 3, [P("avg"), P("avg"), R()],
+                [P("max"), P("max"), R()], [P("min"), P("min"), R()],
+                [P("avg"), R(), P("avg")]]
+    mul = [[P("sum"), P("sum"), R()], [P("avg"), P("avg"), R()],
+           [P("sum"), R(), P("sum")], [P("avg"), R(), P("avg")]]
+    div = [[P("sum"), P("sum"), R()], [P("avg"), P("avg"), R()]]
+    rising = [[P("max"), P("max")], [P("min"), P("min")]]
+    falling = [[P("min"), P("max")], [P("max"), P("min")]]
+    keep = [[P(r), P(r)] for r in ("sum", "avg", "max", "min")]
+    keep2 = [[P(r)] * 3 for r in ("sum", "avg", "max", "min")]
+    monotone = [[P("max"), P("max"), R()], [P("max"), R(), P("max")],
+                [P("min"), P("min"), R()], [P("min"), R(), P("min")]]
+    table = {}
+    for name in ("add", "sub"):
+        table[getattr(aten, name).Tensor] = additive
+        table[getattr(aten, name + "_").Tensor] = additive
+    for op in (aten.mul.Tensor, aten.mul_.Tensor):
+        table[op] = unary_linear + mul
+    for op in (aten.div.Tensor, aten.div_.Tensor):
+        table[op] = unary_linear + div
+    for op in (aten.div.Scalar, aten.div_.Scalar, aten.mul.Scalar,
+               aten.mul_.Scalar):
+        table[op] = unary_linear
+    for name in ("asinh", "atan", "ceil", "deg2rad", "erf", "exp", "exp2",
+                 "expm1", "floor", "rad2deg", "relu", "sgn", "sigmoid",
+                 "sign", "sinh", "tanh", "trunc", "nan_to_num"):
+        table[getattr(aten, name).default] = rising
+        table[getattr(aten, name + "_").default] = rising
+    for op in (aten.round.default, aten.round.decimals,
+               aten.hardshrink.default, aten.threshold.default):
+        table[op] = rising
+    for op in (aten.erfc.default, aten.erfc_.default):
+        table[op] = falling
+    for op in (aten.neg.default, aten.neg_.default):
+        table[op] = unary_linear + falling
+    for op in (aten.to.dtype, aten.positive.default):
+        table[op] = keep
+    table[aten.copy_.default] = keep2
+    for op in (aten.logaddexp.default, aten.logaddexp2.default):
+        table[op] = monotone
+    for op in (aten.clamp_min.Tensor, aten.fmax.default,
+               aten.maximum.default):
+        table[op] = monotone + [[P("max")] * 3]
+    for op in (aten.clamp_max.Tensor, aten.fmin.default,
+               aten.minimum.default):
+        table[op] = monotone + [[P("min")] * 3]
+    return table
+
+
+@functools.lru_cache(maxsize=1)
+def _pointwise_ops() -> Tuple[Any, ...]:
+    """The pointwise ops DTensor knows (``torch.Tag.pointwise``; not the
+    ``out=`` overloads), and the linear ops 2.13 adds to them."""
+    from torch.distributed.tensor import DTensor
+    aten = torch.ops.aten
+    prop = DTensor._op_dispatcher.sharding_propagator
+    known = set(prop.op_strategy_funcs) | set(
+        prop.op_single_dim_strategy_funcs)
+    ops = {op for op in known if torch.Tag.pointwise in op.tags
+           and "out" not in op._overloadname}
+    ops |= {aten.copy_.default, aten.to.dtype, aten.positive.default}
+    return tuple(sorted(ops, key=str))
+
+
+def _pointwise_strategy(op_schema):
+    """A pointwise op, by DTensor 2.13's rules on every torch version: the
+    output and every input sharded alike on any dim of the broadcast shape
+    (an input that broadcasts there whole), the partial placements the op
+    is linear or monotone in (:func:`_partial_rules`), or all whole.
+    torch 2.11 follows the most-sharded input instead, so a partial input
+    to a non-linear op was all-reduced where 2.13 reduce-scatters it
+    (the norms of the DiT, whose every ``model`` rank then ran all heads
+    of its batch shard)."""
+    from torch.distributed.tensor import Replicate
+    shapes = [c.shape for c in _tensor_specs(op_schema)]
+    common = torch.broadcast_shapes(*shapes)
+    maps = [_broadcast_map(common, s) for s in shapes]
+    rules = [[_Sh(i)] + [_Sh(m[i]) if m[i] >= 0 else Replicate()
+                         for m in maps] for i in range(len(common))]
+    return _expand(op_schema,
+                   rules + _partial_rules().get(op_schema.op, []))
+
+
+def _to_copy_strategy(op_schema):
+    """``aten._to_copy`` (a dtype cast), by DTensor 2.13's rule on every
+    torch version: sharded alike on any dim, or partial where the cast
+    commutes with the partial's reduction."""
+    from torch.distributed.tensor import Partial
+    inp = op_schema.args_schema[0]
+    src = inp.strategies[0].output_spec.tensor_meta.dtype
+    dst = op_schema.kwargs_schema.get("dtype")
+    rules = [[_Sh(d), _Sh(d)] for d in range(inp.ndim)]
+    for op in ("sum", "avg", "max", "min"):
+        keeps = (dst is None or dst == src or (
+            dst != torch.bool and (op in ("max", "min") or not (
+                src.is_floating_point and not dst.is_floating_point))))
+        if keeps:
+            rules.append([Partial(op), Partial(op)])
+    return _expand(op_schema, rules)
+
+
+def _input_dims(spec) -> list:
+    """The input dims a view's output dim spec reads."""
+    from torch.distributed.tensor._ops._view_ops import InputDim
+    dims = []
+    for x in spec.inputs():
+        dims += [x.input_dim] if isinstance(x, InputDim) else _input_dims(x)
+    return dims
+
+
+def _view_placements(placements, shape, new_shape, mesh_sizes):
+    """The placements of a view of ``shape`` as ``new_shape`` of a tensor
+    placed so, by DTensor 2.13's rules, or None where one cannot pass
+    without a move.  A kept dim keeps its shard; in a flattened group the
+    first sharded dim stays a ``Shard`` and a later one becomes a
+    ``_StridedShard`` over the local sizes before it; a split dim's shard
+    goes to the piece whose local sizes before it multiply to its split
+    factor (1 for a ``Shard``), where that piece divides evenly.  Mesh dims
+    are taken in order, each after the shards of the ones before."""
+    import math
+    from torch.distributed.tensor import Shard
+    from torch.distributed.tensor._ops._view_ops import (Flatten, InputDim,
+                                                         Split, view_groups)
+    from torch.distributed.tensor.placement_types import _StridedShard
+    rule = view_groups(tuple(shape), tuple(new_shape))
+    in_local, out_local = list(shape), list(new_shape)
+    sharded = set()              # input dims an earlier mesh dim shards
+    out = []
+    for m, p in zip(mesh_sizes, placements):
+        if not isinstance(p, (Shard, _StridedShard)):
+            out.append(p)
+            continue
+        d = p.dim
+        sf = p.split_factor if isinstance(p, _StridedShard) else 1
+        got = None
+        for o, spec in enumerate(rule):
+            if isinstance(spec, InputDim) and spec.input_dim == d:
+                got = o, sf
+            elif isinstance(spec, Flatten) and d in _input_dims(spec):
+                dims = [getattr(x, "input_dim", None) for x in spec.input_dims]
+                k = dims.index(d)
+                if None in dims or sharded & set(dims[k + 1:]):
+                    return None
+                got = o, sf * math.prod(in_local[x] for x in dims[:k])
+            elif (isinstance(spec, Split) and spec.split_id == 0
+                  and isinstance(spec.input_dim, InputDim)
+                  and spec.input_dim.input_dim == d):
+                pieces = [o + j for j in range(len(spec.group_shape))]
+                before = 1
+                for piece in pieces:
+                    if before == sf:
+                        got = piece, 1
+                        break
+                    before *= out_local[piece]
+            elif d in _input_dims(spec):
+                return None      # a regroup across dims, or a split's tail
+            if got is not None:
+                break
+        if got is None or out_local[got[0]] % m:
+            return None
+        o, f = got
+        out.append(Shard(o) if f == 1 else _StridedShard(o, split_factor=f))
+        in_local[d] //= m
+        out_local[o] //= m
+        sharded.add(d)
+    return out
+
+
+def _view_strategy(op_schema):
+    """``aten.view`` / ``aten._unsafe_view`` by :func:`_view_placements`, on
+    every torch version: torch 2.11's own rule refuses to flatten dims of
+    which a later one is sharded (an einsum's merged batch and heads, or
+    its merged heads and query sequence), which 2.13 places as a
+    ``_StridedShard``; a view that cannot pass without a move is refused
+    (:class:`_NoPlan`: the fallback moves it)."""
+    import math
+    from torch.distributed.tensor._dtensor_spec import DTensorSpec
+    from torch.distributed.tensor._op_schema import OpSpec, OpStrategy
+    src = op_schema.args_schema[0].strategies[0].output_spec
+    new = list(op_schema.args_schema[1])
+    if -1 in new:
+        new[new.index(-1)] = math.prod(src.shape) // math.prod(
+            n for n in new if n != -1)
+    mesh = src.mesh
+    out = _view_placements(src.placements, src.shape, new,
+                           [mesh.size(i) for i in range(mesh.ndim)])
+    if out is None:
+        raise _NoPlan(f"{op_schema.op}: {src} cannot be viewed as {new} "
+                      "without a move")
+    # a _StridedShard here is a layout, not a shard order (as DTensor's
+    # own view rule marks it)
+    return OpStrategy([OpSpec(
+        DTensorSpec(mesh, tuple(out), use_strided_shard_as_shard_order=False),
+        input_specs=[src], redistribute_cost=[[0.0]])])
 
 
 def _compute_us(op_spec) -> float:
-    """The microseconds a matmul plan computes on one rank at the H100's
-    bf16 datasheet rate: its FLOPs over the mesh dims on which an input
-    is sharded (on the others every rank does the whole product)."""
+    """The microseconds a matmul plan takes on one rank beyond its inputs'
+    moves: its FLOPs at the H100's bf16 datasheet rate, over the mesh
+    dims on which an input is sharded (on the others every rank does the
+    whole product), and for a ``bmm`` the reduce-scatter at the NVLink
+    rate that a partial output owes over each mesh dim where it is
+    partial (DTensor costs only a plan's inputs, so a contraction split
+    that left attention's scores partial looked cheaper than gathering a
+    small operand; a projection's partial output, a row-parallel
+    product's, is left to its consumer, which reduces it as it needs)."""
     import math
-    from torch.distributed.tensor import Shard
+    from torch.distributed.tensor import Partial, Shard
     from torch.distributed.tensor.placement_types import _StridedShard
-    from repro_torch.launch.costs import PEAK_FLOPS
+    from repro_torch.launch.costs import NVLINK_BW, PEAK_FLOPS
     a, b = op_spec.input_specs
     flops = 2 * math.prod(a.shape) * b.shape[-1]
+    out_bytes = (math.prod(a.shape[:-1]) * b.shape[-1]
+                 * a.tensor_meta.dtype.itemsize)
     mesh = a.mesh
     for i in range(mesh.ndim):
         if any(isinstance(s.placements[i], (Shard, _StridedShard))
                for s in op_spec.input_specs):
             flops /= mesh.size(i)
-    return flops / PEAK_FLOPS * 1e6
+        if isinstance(op_spec.output_spec.placements[i],
+                      (Shard, _StridedShard)):
+            out_bytes /= mesh.size(i)
+    moved = sum(out_bytes * (mesh.size(i) - 1) / mesh.size(i)
+                for i, p in enumerate(op_spec.output_spec.placements)
+                if isinstance(p, Partial)) if len(a.shape) == 3 else 0
+    return (flops / PEAK_FLOPS + moved / NVLINK_BW) * 1e6
 
 
-def _moved(x, dims, batch: bool):
+def _moved(x, dims, onto: Optional[int]):
     """An op schema's arguments with every DTensor spec's placement on the
-    mesh dims ``dims`` replaced: by ``Shard(0)`` (``batch``; None where a
-    dim 0 cannot take it evenly) or by ``Replicate()``."""
+    mesh dims ``dims`` replaced: by ``Shard(onto)`` (None where a spec has
+    no such dim, or it cannot take the shard evenly, or the spec already
+    is so placed) or, where ``onto`` is None, by ``Replicate()``."""
     from torch.distributed.tensor import Replicate, Shard
     from torch.distributed.tensor._dtensor_spec import DTensorSpec
     if isinstance(x, DTensorSpec):
         places = list(x.placements)
-        for i in dims:
-            places[i] = Replicate()
-        if batch:
-            if not x.shape:
+        if onto is not None:
+            if onto >= len(x.shape) or all(
+                    places[i] == Shard(onto) for i in dims):
                 return None
             ways = 1
             for i, p in enumerate(places):
-                if i in dims or (isinstance(p, Shard) and p.dim == 0):
+                if i in dims or (isinstance(p, Shard) and p.dim == onto):
                     ways *= x.mesh.size(i)
-            if x.shape[0] % ways:
+            if x.shape[onto] % ways:
                 return None
-            for i in dims:
-                places[i] = Shard(0)
+        for i in dims:
+            places[i] = Replicate() if onto is None else Shard(onto)
         return DTensorSpec(x.mesh, tuple(places), tensor_meta=x.tensor_meta)
     if isinstance(x, (list, tuple)):
-        out = [_moved(v, dims, batch) for v in x]
+        out = [_moved(v, dims, onto) for v in x]
         if any(o is None and v is not None for o, v in zip(out, x)):
             return None
         return type(x)(out)
     return x
-
-
-def _contiguous_strides(shape) -> Tuple[int, ...]:
-    strides, n = [], 1
-    for d in reversed(tuple(shape)):
-        strides.append(n)
-        n *= d
-    return tuple(reversed(strides))
 
 
 def _local_numel(spec) -> int:
@@ -696,14 +1065,14 @@ def _local_numel(spec) -> int:
     return math.prod(shape)
 
 
-def _fallbacks(ndim: int):
-    """The moves tried in order, as (mesh dims, batch): each mesh dim from
-    the last (``model``) resharded onto dim 0, else replicated; then all
-    replicated."""
+def _fallbacks(ndim: int, rank: int):
+    """The moves tried in order, as (mesh dims, tensor dim or None): each
+    mesh dim from the last (``model``) resharded onto a tensor dim, the
+    first (the batch) first, else replicated; then all replicated."""
     out = []
     for i in reversed(range(ndim)):
-        out += [((i,), True), ((i,), False)]
-    return out + [(tuple(range(ndim)), False)]
+        out += [((i,), d) for d in range(rank)] + [((i,), None)]
+    return out + [(tuple(range(ndim)), None)]
 
 
 class StrategyFault(RuntimeError):
@@ -715,13 +1084,46 @@ class _NoPlan(ValueError):
     """A plan of DTensor's that :func:`dtensor_rules` refuses."""
 
 
+def _strided_like_inputs(out, op_schema):
+    """``out``, a plan of ``op_schema``, with each spec in it that holds a
+    ``_StridedShard`` reading it as the op's inputs read theirs (a layout
+    or a shard order; as inputs that disagree, a shard order): torch
+    2.13's fix-up after every strategy, which 2.11 lacks, so its
+    redistribution took a strided layout for a shard order it could not
+    decode."""
+    from torch.distributed.tensor._dtensor_spec import DTensorSpec
+    from torch.distributed.tensor.placement_types import _StridedShard
+
+    def specs(tree):
+        return [s for s in torch.utils._pytree.tree_leaves(tree)
+                if isinstance(s, DTensorSpec) and any(
+                    isinstance(p, _StridedShard) for p in s.placements)]
+
+    flags = {s.use_strided_shard_as_shard_order
+             for s in specs(op_schema.args_schema)}
+    if not flags:
+        return out
+    flag = len(flags) > 1 or flags.pop()
+    schema = out.redistribute_schema
+    for spec in specs((out.output_spec,
+                       schema.args_schema if schema else ())):
+        if spec.use_strided_shard_as_shard_order != flag:
+            spec.use_strided_shard_as_shard_order = flag
+            spec.shard_order = (None if flag else
+                                DTensorSpec.compute_default_shard_order(
+                                    spec.placements))
+    return out
+
+
 def _faults_raise(strategy):
     """``strategy`` with any error it raises made a
-    :class:`StrategyFault`."""
+    :class:`StrategyFault`, but its refusals (:class:`_NoPlan`)."""
     @functools.wraps(strategy)
     def run(op_schema):
         try:
             return strategy(op_schema)
+        except _NoPlan:
+            raise
         except Exception as e:
             raise StrategyFault(f"{strategy.__name__} on {op_schema.op}: "
                                 f"{type(e).__name__}: {e}") from e
@@ -790,28 +1192,38 @@ def dtensor_rules():
       (``launch/costs.py``, every mesh dim; DTensor's own model takes
       87.7 GB/s, and a fifth of it across hosts), and a matmul's plan
       also by the time its product takes on one rank at the bf16 peak
+      and by the reduce-scatter a partial output owes
       (:func:`_compute_us`): weighing bytes alone, DTensor keeps an
       activation partial and all-gathers the weight, so every ``model``
       rank computes the whole product;
-    * the strategies of this module for ``aten.gather``, ``aten.index``,
+    * the strategies of this module, the same on every torch version
+      (DTensor's own differ: 2.11 follows the most-sharded input of a
+      pointwise op, 2.13 weighs a shard of every dim), for every
+      pointwise op (2.13's rules, :func:`_pointwise_strategy`),
+      ``aten._to_copy``, ``aten.gather``, ``aten.index``,
       ``aten.index_copy(_)``, ``aten.convolution`` and its backward
       (whose tensor-parallel handler DTensor's dispatcher skips too),
       ``aten.mm``, ``aten.bmm``, ``aten.scatter(_)``,
       ``aten.searchsorted``, ``aten.index_put(_)``, ``aten.flip``,
       ``aten.constant_pad_nd``, ``aten.new_zeros`` and
-      ``aten.logsumexp``;
+      ``aten.logsumexp``; those expanded by :func:`_expand` never make a
+      replicated input partial (a residual stream kept partial is reduced
+      again by every consumer, each choosing for itself);
     * the fallback: where DTensor has no strategy for an op, or its rule
       cannot take the op's placements (a head split of a dim sharded
       wider than the heads, a view of a layout it cannot express), the
       inputs are resharded over one mesh dim (``model`` first, then
-      ``data``, then ``pod``): onto their dim 0 (the batch) where it
-      divides, else replicated; else they are replicated over all of
-      them, and the op runs on what each rank then holds.  The moves are
-      the dry run's collectives and the replicated work is each rank's:
-      nothing leaves the counts.  Only DTensor's own refusals take this
-      path (:func:`_no_plan`); an op with sharded inputs that ends up
-      whole on every rank is noted in ``whole``
-      (:meth:`Fallbacks.refuse_whole`);
+      ``data``, then ``pod``): onto their first dim that takes it evenly
+      (the batch first), else replicated; else they are replicated over
+      all of them, and the op runs on what each rank then holds.  The
+      moves are the dry run's collectives and the replicated work is
+      each rank's: nothing leaves the counts.  Only DTensor's own
+      refusals take this path (:func:`_no_plan`), and a view whose plan
+      gathers a mesh dim (GQA's head split of heads sharded wider than
+      the KV heads, 10 heads over 16 ranks), which moves that mesh dim
+      onto another dim where one takes it (the query sequence); an op
+      with sharded inputs that ends up whole on every rank is noted in
+      ``whole`` (:meth:`Fallbacks.refuse_whole`);
     * a reshard from one dim to another is an all-to-all, as on NCCL
       (DTensor takes a CPU mesh for gloo's, which has none, and
       all-gathers the whole tensor instead);
@@ -847,9 +1259,8 @@ def dtensor_rules():
         """DTensor's sharding of ``op_schema``, refused where a spec has not
         a placement for each mesh dim (a decomposition's plan over a
         one-dim mesh, in some torch versions) or, for a view, unless the
-        input's shard and the output's hold as many elements (DTensor can
-        split an unflattened dim sharded wider than its new leading dim
-        so that they do not)."""
+        input's shard and the output's hold as many elements (a guard on
+        :func:`_view_placements`)."""
         out = plain(op_schema)
         mesh = mesh_of(op_schema)
         specs = [s for s in torch.utils._pytree.tree_leaves(
@@ -865,6 +1276,37 @@ def dtensor_rules():
                               f"and {out.output_spec} differ")
         return out
 
+    def rank_of(op_schema) -> int:
+        return max(len(s.shape) for s in torch.utils._pytree.tree_leaves(
+            op_schema.args_schema) if isinstance(s, DTensorSpec))
+
+    def moved(op_schema, dims, onto):
+        """``op_schema`` with its inputs moved (:func:`_moved`) and its
+        plan for them, or None where they cannot move so or no plan
+        takes them."""
+        args = _moved(op_schema.args_schema, dims, onto)
+        kwargs = {k: _moved(v, dims, onto)
+                  for k, v in op_schema.kwargs_schema.items()}
+        if args is None or any(v is None for v in kwargs.values()):
+            return None
+        rep = OpSchema(op_schema.op, args, kwargs,
+                       schema_info=op_schema.schema_info)
+        try:
+            return rep, checked(rep)
+        except Exception as e:  # noqa: BLE001 (sorted by _no_plan)
+            if not _no_plan(e):
+                raise
+            return None
+
+    def resharded(rep, out):
+        """The plan ``out`` of the moved schema ``rep``, as the plan of
+        the schema it was moved from."""
+        return OutputSharding(
+            out.output_spec, redistribute_schema=out.redistribute_schema or rep,
+            needs_redistribute=True,
+            use_val_from_redistribute_schema=(
+                out.use_val_from_redistribute_schema))
+
     def sharded(op_schema) -> bool:
         """Whether an op that does work has a sharded input (a view does
         none: its gather is a counted collective)."""
@@ -876,6 +1318,9 @@ def dtensor_rules():
             for s in specs for p in s.placements)
 
     def propagate(op_schema):
+        return _strided_like_inputs(planned(op_schema), op_schema)
+
+    def planned(op_schema):
         try:
             return checked(op_schema)
         except Exception as e:  # noqa: BLE001 (sorted by _no_plan)
@@ -888,55 +1333,22 @@ def dtensor_rules():
         name = str(op_schema.op)
         fallbacks.taken[name] += 1
         fallbacks.why.setdefault(name, why.splitlines()[0][:300])
-        if op_schema.op in views:
-            # a view of a layout its strides cannot give (an einsum's
-            # permuted operand): placed as the contiguous copy a reshape
-            # makes, which the rank then takes (dryrun.LocalCounter)
-            src = op_schema.args_schema[0]
-            m = src.tensor_meta
-            cont = OpSchema(op_schema.op, (DTensorSpec(
-                src.mesh, src.placements, tensor_meta=TensorMeta(
-                    m.shape, _contiguous_strides(m.shape), m.dtype)),)
-                + tuple(op_schema.args_schema[1:]), op_schema.kwargs_schema,
-                schema_info=op_schema.schema_info)
-            try:
-                out = checked(cont)
-            except Exception as e:  # noqa: BLE001 (sorted by _no_plan)
-                if not _no_plan(e):
-                    raise
-            else:
-                return OutputSharding(
-                    out.output_spec,
-                    redistribute_schema=out.redistribute_schema or cont,
-                    needs_redistribute=True,
-                    use_val_from_redistribute_schema=(
-                        out.use_val_from_redistribute_schema))
-        for dims, batch in _fallbacks(mesh.ndim):
-            args = _moved(op_schema.args_schema, dims, batch)
-            kwargs = {k: _moved(v, dims, batch)
-                      for k, v in op_schema.kwargs_schema.items()}
-            if args is None or any(v is None for v in kwargs.values()):
-                continue
-            rep = OpSchema(op_schema.op, args, kwargs,
-                           schema_info=op_schema.schema_info)
-            try:
-                out = checked(rep)
-            except Exception as e:  # noqa: BLE001 (sorted by _no_plan)
-                if not _no_plan(e):
-                    raise
+        for dims, onto in _fallbacks(mesh.ndim, rank_of(op_schema)):
+            got = moved(op_schema, dims, onto)
+            if got is None:
                 continue
             if len(dims) == mesh.ndim and mesh.size() > 1 and sharded(
                     op_schema):
                 fallbacks.whole[name] += 1
-            return OutputSharding(
-                out.output_spec,
-                redistribute_schema=out.redistribute_schema or rep,
-                needs_redistribute=True,
-                use_val_from_redistribute_schema=(
-                    out.use_val_from_redistribute_schema))
+            return resharded(*got)
         # no strategy at all: the op runs whole on each rank
         if mesh.size() > 1 and sharded(op_schema):
             fallbacks.whole[name] += 1
+        rep = OpSchema(op_schema.op, _moved(op_schema.args_schema, dims,
+                                            None),
+                       {k: _moved(v, dims, None)
+                        for k, v in op_schema.kwargs_schema.items()},
+                       schema_info=op_schema.schema_info)
         meta = meta_quiet(rep)
 
         def spec(m):
@@ -996,23 +1408,27 @@ def dtensor_rules():
     handlers = dispatcher._custom_op_handlers
     conv = (aten.convolution.default, aten.convolution_backward.default)
     saved_handlers = {op: handlers.pop(op) for op in conv if op in handlers}
-    ours = {aten.gather.default: _gather_strategy,
-            aten.index.Tensor: _index_strategy,
-            aten.index_copy.default: _index_copy_strategy,
-            aten.index_copy_.default: _index_copy_strategy,
-            aten.convolution.default: _conv_strategy,
-            aten.convolution_backward.default: _conv_backward_strategy,
-            aten.mm.default: _matmul_strategy,
-            aten.bmm.default: _matmul_strategy,
-            aten.searchsorted.Tensor: _searchsorted_strategy,
-            aten.flip.default: _flip_strategy,
-            aten.index_put.default: _index_put_strategy,
-            aten.index_put_.default: _index_put_strategy,
-            aten.scatter.src: _scatter_strategy,
-            aten.scatter_.src: _scatter_strategy,
-            aten.constant_pad_nd.default: _pad_strategy,
-            aten.new_zeros.default: _new_zeros_strategy,
-            aten.logsumexp.default: _logsumexp_strategy}
+    ours = {op: _pointwise_strategy for op in _pointwise_ops()}
+    ours.update({aten._to_copy.default: _to_copy_strategy,
+                 aten.view.default: _view_strategy,
+                 aten._unsafe_view.default: _view_strategy,
+                 aten.gather.default: _gather_strategy,
+                 aten.index.Tensor: _index_strategy,
+                 aten.index_copy.default: _index_copy_strategy,
+                 aten.index_copy_.default: _index_copy_strategy,
+                 aten.convolution.default: _conv_strategy,
+                 aten.convolution_backward.default: _conv_backward_strategy,
+                 aten.mm.default: _matmul_strategy,
+                 aten.bmm.default: _matmul_strategy,
+                 aten.searchsorted.Tensor: _searchsorted_strategy,
+                 aten.flip.default: _flip_strategy,
+                 aten.index_put.default: _index_put_strategy,
+                 aten.index_put_.default: _index_put_strategy,
+                 aten.scatter.src: _scatter_strategy,
+                 aten.scatter_.src: _scatter_strategy,
+                 aten.constant_pad_nd.default: _pad_strategy,
+                 aten.new_zeros.default: _new_zeros_strategy,
+                 aten.logsumexp.default: _logsumexp_strategy})
     saved = {op: (prop.op_strategy_funcs.get(op),
                   prop.op_single_dim_strategy_funcs.pop(op, None),
                   prop.op_to_schema_info.get(op))
@@ -1034,7 +1450,22 @@ def dtensor_rules():
     for op in (aten.constant_pad_nd.default, aten.new_zeros.default):
         prop.op_to_schema_info[op] = RuntimeSchemaInfo(
             static_argnum=1, static_kwargkey=["dtype"])
+    prop.op_to_schema_info[aten._to_copy.default] = RuntimeSchemaInfo(
+        static_kwargkey=["dtype"])
+    copy_spec = DTensorSpec.shallow_copy_with_tensor_meta
+
+    def keep_layout(self, tensor_meta):
+        """torch 2.13's copy of a spec, which keeps how its
+        ``_StridedShard`` reads (a layout or a shard order); 2.11's drops
+        it, and its redistribution then fails to decode a strided layout
+        as a shard order."""
+        return DTensorSpec(
+            self.mesh, self.placements, tensor_meta=tensor_meta,
+            use_strided_shard_as_shard_order=(
+                self.use_strided_shard_as_shard_order))
+
     cached = prop.propagate_op_sharding
+    DTensorSpec.shallow_copy_with_tensor_meta = keep_layout
     prop.propagate_op_sharding_non_cached = propagate
     prop.propagate_op_sharding = type(cached)(propagate)
     prop._propagate_tensor_meta_non_cached = meta_quiet
@@ -1046,6 +1477,7 @@ def dtensor_rules():
         with implicit_replication():
             yield fallbacks
     finally:
+        DTensorSpec.shallow_copy_with_tensor_meta = copy_spec
         pt._StridedShard.local_shard_size_and_offset = strided
         _sharding_prop._select_min_cost_strategy = select
         topo.build_from_mesh = build_topo

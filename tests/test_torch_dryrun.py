@@ -10,15 +10,21 @@ redistributions, and the refusals.  Every process group made here is
 destroyed.
 
 Against XLA's own numbers: in a child process with 512 host devices
-(the JAX dry run's count), the JAX builders' phi3 ``train_4k`` and
-``sage_serve`` at smoke size are compiled on a 16x16 mesh of Auto axes
-(jax 0.9's ``make_mesh`` gives Explicit axes, on which
-``repro.launch.dryrun.run_case`` raises ``ShardingTypeError``), and
-their ``memory_analysis`` and ``cost_analysis`` read back.  The port's
-runs of the same cases on a fake 16x16 group must match the argument
-bytes exactly and the per-device FLOPs within +-25%;
+(the JAX dry run's count), the JAX builders' phi3 ``train_4k``,
+``sage_serve`` and three ``prefill_32k`` cases whose heads outnumber the
+16-wide ``model`` axis while their KV heads do not (GQA, MQA and the
+hybrid's local attention with its ring write) at smoke size are compiled
+on a 16x16 mesh of Auto axes (jax 0.9's ``make_mesh`` gives Explicit
+axes, on which ``repro.launch.dryrun.run_case`` raises
+``ShardingTypeError``), and their ``memory_analysis``, ``cost_analysis``
+and partitioned HLO read back.  The port's runs of the same cases on a
+fake 16x16 group must match the argument bytes and the dots' FLOPs a
+device exactly, and ``cost_analysis``'s FLOPs within a band;
 ``repro_torch.launch.roofline`` must print what ``repro.launch.roofline``
-prints over the port's JSONs, in both views."""
+prints over the port's JSONs, in both views.  Also the module's own
+DTensor plans that hold on every torch version: a ring write's
+``index_put_`` in both forms torch hands it over, head splits wider than
+the KV heads, a partial input to a pointwise op."""
 import ast
 import contextlib
 import dataclasses
@@ -50,37 +56,62 @@ CASES = (("phi3-mini-3.8b", "train_4k"),
          ("sage-dit", "sage_serve"))
 
 
-#: the cases compiled by XLA, with the builder keywords of both sides: the
-#: JAX DiT scans its blocks (``repro/models/dit.py``'s ``lax.scan``, which
-#: ``unroll`` does not reach) and XLA's cost analysis counts a loop body
-#: once, so at the smoke depth of 2 blocks XLA counts one (the port's
-#: count was 1.80x XLA's there); at 1 block both count the whole step
+#: the cases compiled by XLA, ``arch:shape[:tag]``, with the builder
+#: keywords of both sides: the JAX DiT scans its blocks
+#: (``repro/models/dit.py``'s ``lax.scan``, which ``unroll`` does not
+#: reach) and XLA's cost analysis counts a loop body once, so at the smoke
+#: depth of 2 blocks XLA counts one (the port's count was 1.80x XLA's
+#: there); at 1 block both count the whole step.  ``heads`` replaces
+#: (n_heads, n_kv_heads, head_dim) of the smoke config on both sides, so
+#: that fewer KV heads than the 16-wide ``model`` axis meet more query
+#: heads: a GQA prefill (32 / 8), an MQA one (32 / 1) and the hybrid's
+#: local attention with its ring write (16 / 1)
 XLA_CASES = {"phi3-mini-3.8b:train_4k": {},
-             "sage-dit:sage_serve": {"n_blocks": 1}}
+             "sage-dit:sage_serve": {"n_blocks": 1},
+             "qwen3-32b:prefill_32k:gqa": {"heads": [32, 8, 32]},
+             "granite-20b:prefill_32k:mqa": {"heads": [32, 1, 64]},
+             "recurrentgemma-2b:prefill_32k:ring": {"heads": [16, 1, 128]}}
 #: port / XLA per-device FLOPs (``cost_analysis``), measured: 0.838
-#: (phi3) and 0.683 (sage, 25,477,120 / 37,293,092).  The port counts
-#: the matmuls only (``torch.utils.flop_counter``), and they equal the
-#: FLOPs of the dots in XLA's partitioned HLO exactly (checked below);
-#: XLA also counts the elementwise ops, reductions and transcendentals,
-#: which at the smoke width (d_model 128) are 32% of sage's step, hence
-#: sage's band below 0.75
+#: (phi3), 0.683 (sage, 25,477,120 / 37,293,092), 0.924 (gqa), 0.960
+#: (mqa) and 0.966 (ring).  The port counts the matmuls (and
+#: convolutions) only (``torch.utils.flop_counter``), and its matmuls
+#: equal the FLOPs of the dots in XLA's partitioned HLO exactly (checked
+#: below); XLA also counts the elementwise ops, reductions and
+#: transcendentals, which at the smoke width (d_model 128) are 32% of
+#: sage's step, hence sage's band below 0.75
+#: recurrentgemma's own heads (10, 1 KV head): XLA splits the heads 2
+#: ways and replicates them over the rest of the 16-wide axis; the port
+#: splits the query sequence 16 ways (no plan of DTensor's splits 10
+#: heads), so it computes and holds less than XLA there
+XLA_FINER = {"recurrentgemma-2b:prefill_32k:ten": {"heads": [10, 1, 128]}}
 FLOP_BANDS = {"phi3-mini-3.8b:train_4k": (0.75, 1.25),
-              "sage-dit:sage_serve": (0.683 * 0.75, 1.25)}
+              "sage-dit:sage_serve": (0.683 * 0.75, 1.25),
+              "qwen3-32b:prefill_32k:gqa": (0.75, 1.25),
+              "granite-20b:prefill_32k:mqa": (0.75, 1.25),
+              "recurrentgemma-2b:prefill_32k:ring": (0.75, 1.25)}
 
 XLA_SIDE = r"""
-import json, math, os, re, sys
+import dataclasses, json, math, os, re, sys
 os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "")
                            + " --xla_force_host_platform_device_count=512")
 import jax
 from jax.sharding import AxisType
-from repro.launch.specs import build_case
+from repro.launch import specs
 mesh = jax.make_mesh((16, 16), ("data", "model"),
                      axis_types=(AxisType.Auto,) * 2,
                      devices=jax.devices()[:256])
+config = specs.get_config
 out = {}
 for name, kw in json.loads(sys.argv[1]).items():
-    arch, shape = name.split(":")
-    case = build_case(arch, shape, mesh, smoke=True, unroll=True, **kw)
+    arch, shape = name.split(":")[:2]
+    kw = dict(kw)
+    heads = kw.pop("heads", None)
+    specs.get_config = (config if heads is None else
+                        lambda arch, smoke=False: dataclasses.replace(
+                            config(arch, smoke=smoke), n_heads=heads[0],
+                            n_kv_heads=heads[1], head_dim=heads[2]))
+    case = specs.build_case(arch, shape, mesh, smoke=True, unroll=True,
+                            **kw)
     with mesh:
         c = jax.jit(case.fn, donate_argnums=case.static.get("donate", ())
                     ).lower(*case.args).compile()
@@ -95,10 +126,14 @@ for name, kw in json.loads(sys.argv[1]).items():
                               r"lhs_contracting_dims=\{([\d,]*)\}", hlo):
         dots += 2 * math.prod(shapes[o]) * math.prod(
             shapes[a][int(i)] for i in k.split(",") if i)
-    assert " convolution(" not in hlo
+    # the only convolutions are depthwise (the RG-LRU's causal conv),
+    # left out on both sides: the dots are every product
+    assert all("feature_group_count=" in line for line in hlo.splitlines()
+               if " convolution(" in line)
     out[name] = {
         "flops": float(cost["flops"]), "dot_flops": dots,
-        "argument_size_in_bytes": c.memory_analysis().argument_size_in_bytes}
+        "argument_size_in_bytes": c.memory_analysis().argument_size_in_bytes,
+        "temp_size_in_bytes": c.memory_analysis().temp_size_in_bytes}
 print(json.dumps(out))
 """
 
@@ -158,6 +193,36 @@ def test_scale_config_and_n_blocks_equal_jax(arch):
             == _jax_n_blocks_full(jax_get_config(arch)))
 
 
+@contextlib.contextmanager
+def _heads(heads):
+    """``specs.build_case`` on smoke configs whose (n_heads, n_kv_heads,
+    head_dim) are ``heads`` (as the XLA child replaces them), for the
+    block."""
+    config = specs.get_config
+    if heads is not None:
+        specs.get_config = lambda arch, smoke=False: dataclasses.replace(
+            config(arch, smoke=smoke), n_heads=heads[0],
+            n_kv_heads=heads[1], head_dim=heads[2])
+    try:
+        yield
+    finally:
+        specs.get_config = config
+
+
+def _measure_xla_case(case, mesh):
+    """The port's matmul FLOPs a device (its convolutions, which XLA's
+    dots leave out, excluded), argument bytes, FLOPs and temporary bytes
+    of an XLA case."""
+    kw = dict({**XLA_CASES, **XLA_FINER}[case])
+    arch, shape = case.split(":")[:2]
+    with _heads(kw.pop("heads", None)):
+        m = dryrun.measure(arch, shape, mesh, smoke=True, kw=kw)
+    mem = m["memory_analysis"]
+    return (m["flops"] - m["flops_by_op"].get("convolution", 0),
+            mem["argument_size_in_bytes"], m["flops"],
+            mem["temp_size_in_bytes"])
+
+
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """The smoke cases run once each on a fake 16x16 group (as
@@ -167,7 +232,8 @@ def runs(tmp_path_factory):
     out = tmp_path_factory.mktemp("dryrun")
     env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=str(ROOT / "src"))
     child = subprocess.Popen(
-        [sys.executable, "-c", XLA_SIDE, json.dumps(XLA_CASES)], cwd=ROOT,
+        [sys.executable, "-c", XLA_SIDE,
+         json.dumps({**XLA_CASES, **XLA_FINER})], cwd=ROOT,
         env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     try:
         res = {"dir": str(out)}
@@ -183,9 +249,8 @@ def runs(tmp_path_factory):
             res["blocks"] = {nb: dryrun.measure(
                 "phi3-mini-3.8b", "train_4k", mesh, smoke=True,
                 kw={"n_blocks": nb})["flops"] for nb in (1, 3)}
-            res["sage:1"] = dryrun.measure(
-                "sage-dit", "sage_serve", mesh, smoke=True,
-                kw=XLA_CASES["sage-dit:sage_serve"])
+            res["port"] = {case: _measure_xla_case(case, mesh)
+                           for case in {**XLA_CASES, **XLA_FINER}}
         res["blocks"][2] = res["phi3-mini-3.8b", "train_4k"]["flops_per_dev"]
         assert not dist.is_initialized()
         stdout, stderr = child.communicate(timeout=600)
@@ -313,29 +378,32 @@ def test_tree_loss_remat_backward_uses_the_given_weights():
         torch.testing.assert_close(g, want, rtol=1e-5, atol=1e-6)
 
 
-def _port_against_xla(runs, case):
-    """The port's per-device FLOPs and argument bytes of an XLA case."""
-    if XLA_CASES[case]:
-        m = runs["sage:1"]
-        return m["flops"], m["memory_analysis"]["argument_size_in_bytes"]
-    r = runs[tuple(case.split(":"))]
-    return (r["flops_per_dev"],
-            r["memory_analysis"]["argument_size_in_bytes"])
-
-
 @pytest.mark.parametrize("case", list(XLA_CASES))
 def test_argument_bytes_equal_xla(runs, case):
-    assert (_port_against_xla(runs, case)[1]
+    assert (runs["port"][case][1]
             == runs["xla"][case]["argument_size_in_bytes"])
 
 
 @pytest.mark.parametrize("case", list(XLA_CASES))
 def test_flops_per_device_near_xla(runs, case):
-    flops = _port_against_xla(runs, case)[0]
-    assert flops == runs["xla"][case]["dot_flops"]
+    matmuls, _, flops, _ = runs["port"][case]
+    assert matmuls == runs["xla"][case]["dot_flops"]
     ratio = flops / runs["xla"][case]["flops"]
     lo, hi = FLOP_BANDS[case]
     assert lo <= ratio <= hi, ratio
+
+
+@pytest.mark.parametrize("case", list(XLA_FINER))
+def test_ten_heads_split_finer_than_xla(runs, case):
+    """10 heads over a 16-wide ``model`` axis: XLA's dots a device are
+    more than 7x the port's (7.8x: XLA splits the heads 2 ways, the port
+    the query sequence 16 ways; the projections split alike), its
+    temporaries larger, the arguments equal."""
+    matmuls, args, _, temp = runs["port"][case]
+    xla = runs["xla"][case]
+    assert args == xla["argument_size_in_bytes"]
+    assert 7 * matmuls < xla["dot_flops"]
+    assert temp < xla["temp_size_in_bytes"]
 
 
 @pytest.mark.parametrize("variants", [False, True])
@@ -422,3 +490,169 @@ def test_a_fault_in_a_strategy_is_raised(monkeypatch):
                 torch.flip(x, (0,))
     assert not fb.taken and not fb.whole
     assert not dist.is_initialized()
+
+
+def _strategy(spec):
+    """A DTensor spec as the one-plan ``OpStrategy`` DTensor hands a
+    strategy."""
+    from torch.distributed.tensor._op_schema import OpSpec, OpStrategy
+    return OpStrategy([OpSpec(spec)])
+
+
+@pytest.mark.parametrize("form", ["strategy", "spec"])
+def test_index_put_strategy_takes_both_index_list_forms(form):
+    """A ring cache's write, ``cache[:, slots] = k`` (``index_put_`` with
+    the index list ``[None, slots]``), keeps the cache's placement on
+    every torch version: torch 2.13 hands the index tensor over as a
+    strategy, 2.11 as a bare spec beside the strategies of ``self`` and
+    the values (``form``).  Each tensor argument gets a spec, the index
+    whole, the values sharded like the cache."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor._dtensor_spec import DTensorSpec, TensorMeta
+    from torch.distributed.tensor._op_schema import OpSchema
+    from torch.distributed.tensor._sharding_prop import (
+        _select_min_cost_strategy)
+    with dryrun.fake_group(256):
+        mesh = make_production_mesh(device_type="cpu")
+        with FakeTensorMode():
+            def spec(shape, placements, dtype=torch.bfloat16):
+                t = torch.empty(shape, dtype=dtype)
+                return DTensorSpec(mesh, tuple(placements), tensor_meta=(
+                    TensorMeta(t.shape, t.stride(), t.dtype)))
+            cache = spec((32, 64, 1, 128), [Shard(0), Shard(3)])
+            slots = spec((64,), [Replicate()] * 2, torch.int64)
+            values = spec((32, 64, 1, 128), [Shard(0), Shard(3)])
+            index = _strategy(slots) if form == "strategy" else slots
+            schema = OpSchema(torch.ops.aten.index_put_.default,
+                              (_strategy(cache), [None, index],
+                               _strategy(values)), {})
+            plan = _select_min_cost_strategy(
+                specs._index_put_strategy(schema), schema)
+    assert [s.placements for s in plan.input_specs] == [
+        (Shard(0), Shard(3)), (Replicate(), Replicate()),
+        (Shard(0), Shard(3))]
+    assert plan.output_spec.placements == (Shard(0), Shard(3))
+    assert sum(sum(c) for c in plan.redistribute_cost) == 0
+    assert not dist.is_initialized()
+
+
+@pytest.mark.parametrize("heads", [(32, 8), (10, 1)])
+def test_a_head_split_moves_onto_the_query_sequence(heads):
+    """A view that splits heads sharded 16 ways: GQA's
+    ``q.reshape(B, S, Hkv, g, hd)`` with 32 heads and 8 KV heads, which
+    DTensor refuses, and recurrentgemma's 10 heads out of a projection
+    sharded 16 ways, which DTensor places by gathering them.  Either way
+    the ``model`` axis moves onto the query sequence instead (an
+    all-to-all, no gather), the view keeps it there, and the move is
+    noted as the view's fallback."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.distributed.tensor import Shard, distribute_tensor
+    B, S, hd = 32, 1024, 16
+    H, Hkv = heads
+    shape, new = (((B, S, H, hd), (B, S, Hkv, H // Hkv, hd)) if H % 16 == 0
+                  else ((B, S, H * hd), (B, S, H, hd)))
+    with dryrun.fake_group(256):
+        mesh = make_production_mesh(device_type="cpu")
+        with FakeTensorMode(allow_non_fake_inputs=True), \
+                specs.dtensor_rules() as fb:
+            q = distribute_tensor(torch.zeros(shape), mesh,
+                                  [Shard(0), Shard(2)])
+            with dryrun.LocalCounter() as c:
+                out = q.reshape(new)
+            placements = out.placements
+            local = tuple(out.to_local().shape)
+    moved = B // 16 * S // 16 * H * hd * 4
+    assert placements == (Shard(0), Shard(1))
+    assert local == (B // 16, S // 16) + new[2:]
+    assert c.collectives() == {"all-to-all": moved, "total": moved}
+    assert fb.taken == {"aten.view.default": 1} and not fb.whole
+    assert not dist.is_initialized()
+
+
+@pytest.mark.parametrize("op", ["rsqrt", "mul"])
+def test_a_partial_input_to_a_pointwise_op_takes_one_plan(op):
+    """A partial sum over ``model`` (a norm's mean of a row-parallel
+    product) into a pointwise op: not linear in it (``rsqrt``), it is
+    reduce-scattered onto a dim the op keeps, as DTensor 2.13 does (2.11
+    all-reduced it, and the DiT then ran all heads on every ``model``
+    rank); linear in it (``mul`` by a replicated tensor), it stays
+    partial.  The plan is the module's own, the same on every torch
+    version."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.distributed.tensor import (DTensor, Partial, Replicate, Shard,
+                                          distribute_tensor)
+    with dryrun.fake_group(256):
+        mesh = make_production_mesh(device_type="cpu")
+        with FakeTensorMode(allow_non_fake_inputs=True), \
+                specs.dtensor_rules():
+            prop = DTensor._op_dispatcher.sharding_propagator
+            assert prop.op_strategy_funcs[torch.ops.aten.rsqrt.default] \
+                .__wrapped__ is specs._pointwise_strategy
+            x = DTensor.from_local(torch.empty(8, 1024, 1), mesh,
+                                   [Shard(0), Partial()], run_check=False)
+            s = distribute_tensor(torch.zeros(128, 1024, 1), mesh,
+                                  [Shard(0), Replicate()])
+            with dryrun.LocalCounter() as c:
+                y = torch.rsqrt(x) if op == "rsqrt" else x * s
+            placements = y.placements
+    if op == "rsqrt":
+        assert placements == (Shard(0), Shard(1))
+        assert c.collectives() == {"reduce-scatter": 8 * 64 * 4,
+                                   "total": 8 * 64 * 4}
+    else:
+        assert placements == (Shard(0), Partial())
+        assert c.collectives() == {"total": 0}
+    assert not dist.is_initialized()
+
+
+def test_chip_smoke_holds_each_dry_run_case_to_its_expected_counts():
+    """``chip_smoke.py``'s ``dryrun`` phase holds every case of
+    ``DRYRUN_CASES`` to ``DRYRUN_EXPECTED`` (FLOPs and collective bytes a
+    device by kind, torch 2.13's): equal counts pass, and a difference in
+    any kind fails the phase rather than printing a warning."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    assert set(chip_smoke.DRYRUN_EXPECTED) == set(chip_smoke.DRYRUN_CASES)
+    assert {("recurrentgemma-2b", "prefill_32k"),
+            ("granite-20b", "prefill_32k")} <= set(chip_smoke.DRYRUN_CASES)
+    for (arch, shape), want in chip_smoke.DRYRUN_EXPECTED.items():
+        assert want["collective_bytes_per_dev"]["total"] == sum(
+            v for k, v in want["collective_bytes_per_dev"].items()
+            if k != "total")
+        failures = []
+        chip_smoke._dryrun_expected(failures, arch, shape, dict(want))
+        assert failures == []
+        coll = dict(want["collective_bytes_per_dev"])
+        coll["all-gather"] = coll.get("all-gather", 0) + 1
+        chip_smoke._dryrun_expected(failures, arch, shape, dict(
+            want, collective_bytes_per_dev=coll))
+        assert len(failures) == 1 and f"{arch}:{shape}" in failures[0]
+
+
+def test_roofline_compares_two_runs_case_by_case(runs, tmp_path, capsys):
+    """``roofline --against``: a run against itself counts the same in
+    every case; a case whose FLOPs or collective bytes of one kind differ,
+    or that one run lacks, is printed."""
+    from repro_torch.launch import roofline
+    roofline.main(["--dir", runs["dir"], "--against", runs["dir"]])
+    assert capsys.readouterr().out.splitlines() == [
+        "", "5 of 5 cases count the same"]
+    other = tmp_path / "other"
+    other.mkdir()
+    for f in pathlib.Path(runs["dir"]).glob("*.json"):
+        r = json.loads(f.read_text())
+        if r["arch"] == "mamba2-780m":
+            continue
+        if r["arch"] == "phi3-mini-3.8b":
+            r["collective_bytes_per_dev"]["all-gather"] += 1
+        (other / f.name).write_text(json.dumps(r))
+    roofline.main(["--dir", runs["dir"], "--against", str(other)])
+    out = capsys.readouterr().out.splitlines()
+    assert out[0] == "mamba2-780m:decode_32k:16x16:baseline: only in this run"
+    assert out[1].startswith("phi3-mini-3.8b:train_4k:16x16:baseline: "
+                             "collective_bytes_per_dev")
+    assert out[-1] == "3 of 4 cases count the same"

@@ -12,7 +12,7 @@ arguments' local shards.  JAX's side is ``repro.launch.specs.build_case``
 on an ``AbstractMesh`` (no devices, no compile), summed over each
 argument's shard shape, rounded up where a dim does not divide (as XLA
 pads): what XLA's ``memory_analysis().argument_size_in_bytes`` reports
-for these cases (``tests/test_torch_dryrun_xla.py`` compiles two)."""
+for these cases (``tests/test_torch_dryrun.py`` compiles five)."""
 import math
 
 import jax
