@@ -83,8 +83,9 @@ without the result line:
    against their plain versions on every stack the four passes handed
    them (``record_stacks``; each stack's per-row steps from the same
    passes at smoke size on the CPU), in f32 and bf16, and the capture and
-   no-cache passes again with the DiT and VAE in f32, whose groups
-   computed in both must agree within 1e-3.  Each pass's discrete outcome
+   no-cache passes again with the DiT (cut to its first
+   ``STREAM_C_F32_LAYERS`` blocks) and VAE in f32, whose groups computed
+   in both must agree within 1e-3.  Each pass's discrete outcome
    (``stream_outcome``: ticks, launch / NFE / overload ledgers, groups,
    statuses, tier and shape ledgers, the cache's ledger) must equal
    ``STREAM_EXPECTED``, the JAX scheduler's at smoke size, the per-group
@@ -94,8 +95,9 @@ without the result line:
    packs with a 2-D grid, the graphs captured by runner key, capture
    seconds and memory are printed;
 5. end to end, ``mamba2`` — the AR shared-prefix path at the full
-   ``mamba2-780m`` width (48 SSD layers, d_model 1536, 48 heads of 64,
-   d_state 128, vocab 50280, bf16 activations): the launcher
+   ``mamba2-780m`` width, cut to 12 of its 48 SSD layers
+   (``PATHS["mamba2"]``; d_model 1536, 48 heads of 64, d_state 128, vocab
+   50280, bf16 activations): the launcher
    (``repro_torch.launch.serve``) at batch 4, 1024-token prompts, 32
    generated tokens, independent and ``--shared-prefix``; then
    ``shared_prefix_prefill`` on 2 groups of 4 requests (1024-token shared
@@ -111,14 +113,15 @@ without the result line:
    equal a full independent prefill's, within bf16's own error in bf16 and
    within 1e-3 of their magnitude in f32.  Then ``cached_prefix_prefill``
    over the same groups, g0, g1, g0, g1, through a ``TrunkCache`` of one
-   payload on the card and two on the host: two misses (48 ``ssd_scan``
-   launches each), then two host hits (none, 256 token steps, logits and
+   payload on the card and two on the host: two misses (an ``ssd_scan``
+   launch a layer each), then two host hits (none, 256 token steps, logits and
    caches bitwise the miss's), with the CRC, spill and promotion
    milliseconds of a payload.  One trunk prefill and the replayed decode
    loop are then traced, each trace held to the counts;
 5b. dense — the dense LM (``phase_dense``) at the full ``phi3-mini-3.8b``
-   width (32 layers, d_model 3072, 32 heads of 96, d_ff 8192 SwiGLU, vocab
-   32064, bf16, flash on the kernel route: sm90 padded to width 128): the
+   width, cut to 8 of its 32 layers (``PATHS["dense"]``; d_model 3072, 32
+   heads of 96, d_ff 8192 SwiGLU, vocab 32064, bf16, flash on the kernel
+   route: sm90 padded to width 128): the
    launcher at the mamba2 path's shapes in both modes (prefill s beside its
    FLOP floor, capture s, decode tokens/s, token steps, cache bytes, peak
    memory, launches by flash route: one sm90 launch a layer a prefill,
@@ -158,16 +161,18 @@ without the result line:
    then ``kimi-k2`` at smoke size (GQA + MoE) in the launcher's
    shared-prefix mode;
 5e. vlm_encdec — the cross-attention LMs (``phase_vlm_encdec``), each at
-   full width and depth with bf16 activations and flash on the kernel
-   route: ``llama-3.2-vision-11b`` (40 layers: 8 ``(attn x4, cross_attn)``
+   full width and a quarter of its depth (``PATHS``) with bf16
+   activations and flash on the kernel route: ``llama-3.2-vision-11b``
+   (10 of its 40 layers: 2 of its 8 ``(attn x4, cross_attn)``
    super-blocks, d_model 4096, GQA 32/8 x 128, vocab 128256, 1024 image
-   tokens of 1280 projected to d_model) and ``seamless-m4t-large-v2`` (24
-   bidirectional encoder layers over frame embeddings of 1024, 24
-   ``cross_attn`` decoder layers, MHA 16 x 64, GELU, vocab 256206).  For
-   each: the launcher in both modes (the JAX launcher's zero memory: 1024
-   image tokens, 32 frames), every prefill launching sm90 flash exactly
-   48 (VLM: 40 causal self-attentions, 8 cross) or 72 times (seamless: 24
-   encoder, 24 decoder self, 24 cross) and no decode step any kernel; with
+   tokens of 1280 projected to d_model) and ``seamless-m4t-large-v2`` (6
+   of its 24 bidirectional encoder layers over frame embeddings of 1024,
+   6 of its 24 ``cross_attn`` decoder layers, MHA 16 x 64, GELU, vocab
+   256206).  For each: the launcher in both modes (the JAX launcher's
+   zero memory: 1024 image tokens, 32 frames), every prefill launching
+   sm90 flash exactly once a causal self-attention, a cross-attention and
+   an encoder layer (``_flash_per_prefill``: 12 for the VLM, 8 + 2 x 2;
+   18 for seamless, 6 + 6 x 2) and no decode step any kernel; with
    seeded non-zero memories (VLM ``(4, 1024, 1280)`` image embeddings,
    seamless ``(4, 256, 1024)`` frames: ``max(seq // 4, 16)``) the decode
    graph against eager ``decode_step`` over 32 steps (bitwise),
@@ -208,7 +213,9 @@ without the result line:
    full size on a fake 16x16 group for ``DRYRUN_CASES`` (the SAGE step,
    phi3 ``decode_32k``, mamba2 ``train_4k`` and the ``prefill_32k`` of
    recurrentgemma-2b, with its ring write, and of granite-20b, with its
-   multi-query attention), in child processes of at most
+   multi-query attention; and at smoke size granite-20b ``train_4k``,
+   whose backward transposes an activation strided over both mesh dims),
+   in child processes of at most
    ``DRYRUN_CHILD_S`` s (each result line printed; the JSONs under
    ``experiments/dryrun_torch``; a case in which a sharded op found no
    DTensor plan and ran whole on every rank fails); each case's FLOPs
@@ -351,6 +358,10 @@ STREAM_PROMPTS = ("a red circle on a white background",
                   "a tall green tree in a field at dawn",
                   "a blue square over a calm grey sea",
                   "a yellow house under a starry night sky")
+# the DiT blocks of trace C's f32 witness (of sage-dit's 28): its check
+# (a group's image does not depend on its packs) holds at any depth, and
+# its f32 GEMMs at full depth took ~98 s of the script on one H100
+STREAM_C_F32_LAYERS = 7
 STREAM_TRACES = {
     # "hetero": benchmarks/serving_bench.py's mix4t4s2hT6 (BENCH_7) and one
     # more class, all arriving at t = 0 with mixed-sampler packs:
@@ -1617,6 +1628,16 @@ FLASH_CASES = [
      BF16),
     ("seamless_self causal 4x1024x1024 h16 d64", 4, 1024, 1024, 16, 16, 64,
      True, 0, BOTH),
+    # bf16 head_dims off 8, which the wrapper zero-pads to the next
+    # multiple of 8 for the sm90 kernel's 16-byte TMA rows (its `pad_ms`:
+    # the three pads and the output's slice, inside `ms`): causal GQA with
+    # a window, a non-causal cross with a ragged Sk, the widest head
+    ("pad gqa_window causal 2x1024x1024 h16/4 d36 w256", 2, 1024, 1024, 16,
+     4, 36, True, 256, BF16),
+    ("pad cross 4x1024x77 h16 d100", 4, 1024, 77, 16, 16, 100, False, 0,
+     BF16),
+    ("pad causal 2x512x512 h4/2 d250", 2, 512, 512, 4, 2, 250, True, 0,
+     BF16),
 ]
 
 
@@ -1629,7 +1650,8 @@ def _flash_cases(failures, rows, dev, gen, cases):
     f32 CUDA-core figure of earlier runs)."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ops import (flash_attention,
+                                                         pad_head_dim, route)
     from repro_torch.kernels.flash_attention.ref import attention_ref
     for (case, B, Sq, Sk, H, Hkv, D, causal, window, dtypes) in cases:
         scale = 1.0 / math.sqrt(D)
@@ -1648,9 +1670,25 @@ def _flash_cases(failures, rows, dev, gen, cases):
             k, v = (torch.randn((B, Sk, Hkv, D), device=dev, generator=gen,
                                 dtype=dtype) for _ in range(2))
             kw = dict(causal=causal, window=window, scale=scale)
+            by_route = dict(flash_attention.launches_by_route)
             got = flash_attention(q, k, v, **kw)
+            kernel = route(dtype, D)[0]
+            by_route[kernel] += 1
+            if flash_attention.launches_by_route != by_route:
+                failures.append(
+                    f"flash_attention {case} {dn}: one call launched "
+                    f"{flash_attention.launches_by_route}, want {by_route}")
             want = attention_ref(q, k, v, **kw)
             ms = time_ms(lambda: flash_attention(q, k, v, **kw), 10)
+            extra = ""
+            if kernel == "sm90" and D % 8:
+                def pads():
+                    return [pad_head_dim(x) for x in (q, k, v)] + [
+                        got.new_empty(got.shape[:-1] + (-(-D // 8) * 8,))[
+                            ..., :D].contiguous()]
+                pad_ms = time_ms(pads, 10)
+                extra = (f"pad_ms={pad_ms:.6g} pad_share={pad_ms / ms:.4g} "
+                         f"launched={kernel} ")
             plain = time_ms(lambda: attention_ref(q, k, v, **kw), 5)
             qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
             mask = None if (not causal or not window) else visible
@@ -1664,13 +1702,12 @@ def _flash_cases(failures, rows, dev, gen, cases):
             flops = 4.0 * B * H * pairs * D
             nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
             t_bytes = nbytes / HBM_BYTES_PER_S
-            extra = ""
             if dtype == torch.bfloat16:
                 t_ops = flops / PEAK_FLOPS["bfloat16"]
             else:
                 t_ops = TF32_PASSES * flops / PEAK_FLOPS["tf32"]
                 cc = max(flops / PEAK_FLOPS["float32"], t_bytes) * 1e3
-                extra = f"bound_cuda_core_ms={cc:.6g} "
+                extra += f"bound_cuda_core_ms={cc:.6g} "
             bound = max(t_ops, t_bytes) * 1e3
             bound_by = "operations" if t_ops >= t_bytes else "bytes"
             err = _check(failures, "flash_attention", case, dn, got, want,
@@ -1827,14 +1864,17 @@ def _randomize_zero_init(module, gen):
 # shared-uncond CFG (one uncond row per group in the branch phase), both
 # through SageServingEngine.step(); and the AR shared-prefix path on
 # mamba2-780m (launcher at batch 4, then 2 groups of 4 with a 1024-token
-# shared prefix and 64-token tails)
+# shared prefix and 64-token tails).  ``n_layers`` (``enc_layers``) cut an
+# AR path's depth at its full width: every count it is held to follows
+# from the depth, and its eager decode steps (~2-3 ms of host time a
+# layer) took most of the script's time at full depth
 PATHS = {"ddim": dict(total_steps=30),
          "dpmpp": dict(total_steps=30, sampler="dpmpp",
                        shared_uncond_cfg=True),
          "mamba2": dict(arch="mamba2-780m", batch=4, prompt_len=1024,
-                        gen=32, groups=2, members=4, tail=64),
+                        gen=32, groups=2, members=4, tail=64, n_layers=12),
          "dense": dict(arch="phi3-mini-3.8b", batch=4, prompt_len=1024,
-                       gen=32, groups=2, members=4, tail=64),
+                       gen=32, groups=2, members=4, tail=64, n_layers=8),
          # the hybrid: the dense path's shapes, then the launcher once at
          # long_prompt (local caches in the ring layout) and a decode graph
          # from a wrap_prompt prefill across the ring's last row
@@ -1849,15 +1889,17 @@ PATHS = {"ddim": dict(total_steps=30),
          # GQA + MoE at smoke size (1.03e12 parameters do not fit one card)
          "moe:kimi": dict(arch="kimi-k2-1t-a32b", batch=4, prompt_len=1024,
                           gen=32),
-         # the cross-attention LMs at full width and depth: the VLM's
-         # memory is its 1024 image tokens; seamless's encoder reads
+         # the cross-attention LMs at full width, a quarter of their depth
+         # (the VLM: 2 of its 8 (attn x4, cross_attn) super-blocks): the
+         # VLM's memory is its 1024 image tokens; seamless's encoder reads
          # max(prompt_len // ENC_FRAMES_DIV, 16) frames (the JAX package's
-         # launch/specs.py), the launcher's 32; sm90 launches a prefill
+         # launch/specs.py), the launcher's 32
          "vlm": dict(arch="llama-3.2-vision-11b", batch=4, prompt_len=1024,
-                     gen=32, groups=2, members=4, tail=64, per_prefill=48),
+                     gen=32, groups=2, members=4, tail=64, n_layers=10),
          "encdec": dict(arch="seamless-m4t-large-v2", batch=4,
                         prompt_len=1024, gen=32, groups=2, members=4,
-                        tail=64, per_prefill=72, launcher_frames=32)}
+                        tail=64, launcher_frames=32, n_layers=6,
+                        enc_layers=6)}
 ENC_FRAMES_DIV = 4
 DIT_PATHS = ("ddim", "dpmpp")
 # kernels each path must launch; "never" must stay at 0 launches
@@ -2566,9 +2608,8 @@ def phase_stream(failures, cfg, modules):
     del sched
     gc.collect()
     torch.cuda.empty_cache()
-    out["stream:C"], cap, plain = _stream_cache(failures, cfg, modules,
-                                                dev)
-    _stream_cache_f32(failures, cfg, modules, dev, cap, plain)
+    out["stream:C"] = _stream_cache(failures, cfg, modules, dev)
+    _stream_cache_f32(failures, cfg, modules, dev)
     return out
 
 
@@ -2851,8 +2892,7 @@ def _stream_cache(failures, cfg, modules, dev):
     ``trunk_entry_bytes`` of the latent and on the card; then
     ``ddim_step`` and flash on every stack the passes handed them
     (``_trace_c_stack_checks``).  Returns the four passes' launches (by the
-    wrappers, by graph replays), and the capture and no-cache passes'
-    records."""
+    wrappers, by graph replays)."""
     import torch
 
     shape = (cfg.latent_size, cfg.latent_size, cfg.latent_channels)
@@ -2923,27 +2963,30 @@ def _stream_cache(failures, cfg, modules, dev):
     gc.collect()
     torch.cuda.empty_cache()
     _trace_c_stack_checks(failures, card, trace_c_stacks(failures), dev)
-    return ((_summed(*(w for w, _ in launches)),
-             _summed(*(r for _, r in launches))), cap, plain)
+    return (_summed(*(w for w, _ in launches)),
+            _summed(*(r for _, r in launches)))
 
 
-def _stream_cache_f32(failures, cfg, modules, dev, cap, plain):
+def _stream_cache_f32(failures, cfg, modules, dev):
     """Trace C's capture (scan) and no-cache passes again at full width
-    with the DiT and the VAE in f32: the same weights, noise and packs as
-    the bf16 passes (``cap``, ``plain``: their records).  The groups that
-    computed their own shared phase in both f32 passes must agree within
-    1e-3, the end-to-end tolerance: at full width, on the kernels, a
-    group's image does not depend on the packs it rides but for rounding.
-    Printed beside it: each group's distance between its bf16 and its f32
-    image in the same pass, the size of bf16's rounding after the steps."""
+    with the DiT and the VAE in f32, the DiT cut to its first
+    ``STREAM_C_F32_LAYERS`` blocks: the same weights, noise and packs as
+    the bf16 passes.  The groups that computed their own shared phase in
+    both f32 passes must agree within 1e-3, the end-to-end tolerance: at
+    full width, on the kernels, a group's image does not depend on the
+    packs it rides but for rounding.  (The outcomes, held to
+    ``STREAM_EXPECTED``, do not depend on the DiT's depth.)"""
     import torch
     from repro_torch.config import replace
     from repro_torch.models.dit import DiT
     from repro_torch.models.vae import VAEDecoder
 
-    cfg32 = replace(cfg, dtype="float32")
+    depth = min(cfg.n_layers, STREAM_C_F32_LAYERS)
+    cfg32 = replace(cfg, dtype="float32", n_layers=depth)
     dit = DiT(cfg32, device=dev)
-    dit.load_state_dict(modules[0].state_dict())
+    dit.load_state_dict({
+        k: v for k, v in modules[0].state_dict().items()
+        if not k.startswith("blocks.") or int(k.split(".")[1]) < depth})
     vae = VAEDecoder(device=dev, dtype=torch.float32)
     vae.load_state_dict(modules[2].state_dict())
     t0 = time.perf_counter()
@@ -2953,14 +2996,11 @@ def _stream_cache_f32(failures, cfg, modules, dev, cap, plain):
         torch.cuda.synchronize(dev)
     wall = time.perf_counter() - t0
     kept = _kept_groups_err(out["capture"], out["no cache"])
-    bf16_cap = _groups_err(cap, out["capture"])
-    bf16_plain = _groups_err(plain, out["no cache"])
     ok = max(kept.values()) <= 1e-3
-    log(f"[stream:C:f32] the capture and no-cache passes with the DiT and "
-        f"VAE in f32 ({wall:.3f} s, graphs captured included): the groups "
-        f"computed in both passes differ by {kept} tol=1e-3 "
-        f"{'ok' if ok else 'FAIL'}; bf16 against f32 by group, capture "
-        f"pass {bf16_cap}, no-cache pass {bf16_plain}")
+    log(f"[stream:C:f32] the capture and no-cache passes with the DiT "
+        f"({depth} of its {cfg.n_layers} blocks) and VAE in f32 "
+        f"({wall:.3f} s, graphs captured included): the groups computed in "
+        f"both passes differ by {kept} tol=1e-3 {'ok' if ok else 'FAIL'}")
     if not ok:
         failures.append(f"stream C f32: a group's image moved with its "
                         f"packs: {kept}")
@@ -3364,13 +3404,14 @@ def _as_dtype(model, dtype):
 
 
 def phase_mamba2(failures):
-    """The AR shared-prefix path at full mamba2-780m width (random weights
-    from seed 0).  Launch counts are set to 0 just before the path's runs
-    and read just after; the comparisons with independent prefills come
-    after that.  Returns the path's launch counts."""
+    """The AR shared-prefix path at full mamba2-780m width, its depth cut
+    to ``PATHS["mamba2"]["n_layers"]`` (random weights from seed 0).
+    Launch counts are set to 0 just before the path's runs and read just
+    after; the comparisons with independent prefills come after that.
+    Returns the path's launch counts."""
     import numpy as np
     import torch
-    from repro_torch.config import get_config
+    from repro_torch.config import get_config, replace
     from repro_torch.launch.serve import serve
     from repro_torch.models import transformer as tfm
     from repro_torch.serving.kvcache import fork_model_cache
@@ -3379,7 +3420,7 @@ def phase_mamba2(failures):
 
     dev = torch.device("cuda:0")
     spec = PATHS["mamba2"]
-    cfg = get_config(spec["arch"])
+    cfg = replace(get_config(spec["arch"]), **_depth(spec))
     gc.collect()                  # the DiT phases' modules, held in cycles
     torch.cuda.empty_cache()
     held = torch.cuda.memory_allocated(dev)
@@ -3514,7 +3555,7 @@ def phase_mamba2(failures):
     # an independent prefill of the same tokens.  In bf16 the bound is
     # bf16's own error there: twice the independent prefill's largest
     # difference from the same prefill in f32 (dt and the projections are
-    # rounded to 8 bits, and 48 random layers carry that far).  In f32 the
+    # rounded to 8 bits, and the random layers carry that far).  In f32 the
     # two must agree within 1e-3 of the logits' largest magnitude.
     for g, tokens in enumerate(groups):
         ind, _ = tfm.prefill(model, tokens)
@@ -3814,6 +3855,21 @@ def _lm_layers(model):
     return (list(model.prefix) + [layer for bm in model.blocks
                                   for layer in bm.values()]
             + list(model.suffix))
+
+
+def _depth(spec):
+    """The depth a ``PATHS`` entry cuts its LM to (``n_layers``,
+    ``enc_layers``), as ``get_config`` overrides."""
+    return {k: spec[k] for k in ("n_layers", "enc_layers") if k in spec}
+
+
+def _flash_per_prefill(model):
+    """The sm90 flash launches of one prefill of a cross-attention LM: one
+    a self-attention layer, two a ``cross_attn`` layer (its self- and its
+    cross-attention), one an encoder layer."""
+    return model.cfg.enc_layers + sum(
+        {"attn": 1, "cross_attn": 2}.get(lay.kind, 0)
+        for lay in _lm_layers(model))
 
 
 def _attn_widths(cfg):
@@ -4300,8 +4356,9 @@ def _dense_example(failures):
 
 
 def phase_dense(failures):
-    """The dense LM path at full ``phi3-mini-3.8b`` width (32 layers,
-    d_model 3072, 32 heads of 96, d_ff 8192 SwiGLU, vocab 32064; random
+    """The dense LM path at full ``phi3-mini-3.8b`` width, cut to
+    ``PATHS["dense"]["n_layers"]`` of its 32 layers (d_model 3072, 32
+    heads of 96, d_ff 8192 SwiGLU, vocab 32064; random
     weights from seed 0, bf16 activations, flash on the kernel route): the
     launcher in both modes, the example's ``serve_groups`` (2 groups of 4,
     a 1024-token shared prefix, 64-token tails), each group's decode graph
@@ -4324,7 +4381,7 @@ def phase_dense(failures):
     gc.collect()
     torch.cuda.empty_cache()
     held = torch.cuda.memory_allocated(dev)
-    model = _lm_model(spec["arch"], dev, seed=0)
+    model = _lm_model(spec["arch"], dev, seed=0, **_depth(spec))
     cfg = model.cfg
     _cast_check("phi3-mini-3.8b prefill 1 x 256", model._cast,
                 lambda: tfm.prefill(model, np.arange(256)[None])[0],
@@ -4651,14 +4708,14 @@ def _first_rows(extras, n=1):
 
 
 def _cross_lm(failures, dev, path):
-    """One cross-attention LM (``PATHS[path]``) at full width and depth:
-    the launcher in both modes (its zero memory), counted; then over
-    seeded memories: a timed prefill beside its FLOP floor, the decode
-    graph against eager ``decode_step``, ``shared_prefix_prefill`` over
-    the groups (each its own memory) and ``cached_prefix_prefill`` over
-    g0, g1, g0, g1, the decode step's bytes, prefill/decode against
+    """One cross-attention LM (``PATHS[path]``) at full width and the
+    path's depth: the launcher in both modes (its zero memory), counted;
+    then over seeded memories: a timed prefill beside its FLOP floor, the
+    decode graph against eager ``decode_step``, ``shared_prefix_prefill``
+    over the groups (each its own memory) and ``cached_prefix_prefill``
+    over g0, g1, g0, g1, the decode step's bytes, prefill/decode against
     ``forward_train``, and the profiles.  Every prefill must launch sm90
-    flash ``spec["per_prefill"]`` times, a decode step or a hit none.
+    flash ``_flash_per_prefill`` times, a decode step or a hit none.
     Returns the paths' launches."""
     import numpy as np
     import torch
@@ -4666,10 +4723,10 @@ def _cross_lm(failures, dev, path):
     from repro_torch.serving.runners import launch_counts
     from repro_torch.serving.shared_prefill import shared_prefix_prefill
     spec = PATHS[path]
-    model = _lm_model(spec["arch"], dev, seed=0, tag=path)
+    model = _lm_model(spec["arch"], dev, seed=0, tag=path, **_depth(spec))
     cfg = model.cfg
     B, P, gen, per = (spec["batch"], spec["prompt_len"], spec["gen"],
-                      spec["per_prefill"])
+                      _flash_per_prefill(model))
     memory = _cross_memory(cfg, B, P, dev, seed=1)
     n_mem = next(iter(memory.values())).shape[1]
     launcher_mem = (cfg.n_image_tokens if cfg.family == "vlm"
@@ -4758,8 +4815,9 @@ def _cross_lm(failures, dev, path):
 
 def phase_vlm_encdec(failures):
     """The cross-attention LM paths (``_cross_lm``): llama-3.2-vision-11b,
-    then seamless-m4t-large-v2, each at full width and depth, random
-    weights from seed 0, bf16 activations, flash on the kernel route.
+    then seamless-m4t-large-v2, each at full width and at its path's
+    depth (``PATHS``), random weights from seed 0, bf16 activations, flash
+    on the kernel route.
     Launch counts are set to 0 just before each path's launcher runs and
     read just after.  Returns the paths' launch counts."""
     import torch
@@ -5621,42 +5679,51 @@ def phase_lm_train(failures):
     return {"lm_train": train_launches, "quickstart": quick}
 
 
-# the dry run's full-size cases on the fake 16x16 group
-DRYRUN_CASES = (("sage-dit", "sage_serve"), ("phi3-mini-3.8b", "decode_32k"),
-                ("mamba2-780m", "train_4k"), ("recurrentgemma-2b", "prefill_32k"),
-                ("granite-20b", "prefill_32k"))
+# the dry run's cases on the fake 16x16 group: (arch, shape, smoke)
+DRYRUN_CASES = (("sage-dit", "sage_serve", False),
+                ("phi3-mini-3.8b", "decode_32k", False),
+                ("mamba2-780m", "train_4k", False),
+                ("recurrentgemma-2b", "prefill_32k", False),
+                ("granite-20b", "prefill_32k", False),
+                ("granite-20b", "train_4k", True))
 # what each of them counts a device (FLOPs, collective bytes by kind), as
-# `python -m repro_torch.launch.dryrun --arch A --shape S` wrote them on a
-# CPU with torch 2.13.0+cpu; the plan is the dry run's own
+# `python -m repro_torch.launch.dryrun --arch A --shape S [--smoke]` wrote
+# them on a CPU with torch 2.13.0+cpu; the plan is the dry run's own
 # (launch/specs.dtensor_rules), so another torch must count the same
 DRYRUN_EXPECTED = {
-    ("sage-dit", "sage_serve"): {
+    ("sage-dit", "sage_serve", False): {
         "flops_per_dev": 3057490575360.0,
         "collective_bytes_per_dev": {
             "all-gather": 3186233344, "all-reduce": 7746387968,
             "reduce-scatter": 523469312, "all-to-all": 60954624,
             "total": 11517045248}},
-    ("phi3-mini-3.8b", "decode_32k"): {
+    ("phi3-mini-3.8b", "decode_32k", False): {
         "flops_per_dev": 10164830208.0,
         "collective_bytes_per_dev": {
             "all-gather": 204767232, "reduce-scatter": 196608,
             "all-reduce": 2048, "total": 204965888}},
-    ("mamba2-780m", "train_4k"): {
+    ("mamba2-780m", "train_4k", False): {
         "flops_per_dev": 42362688503808.0,
         "collective_bytes_per_dev": {
             "all-gather": 14623041536, "reduce-scatter": 220111488,
             "all-reduce": 8226860, "all-to-all": 789358592,
             "total": 15640738476}},
-    ("recurrentgemma-2b", "prefill_32k"): {
+    ("recurrentgemma-2b", "prefill_32k", False): {
         "flops_per_dev": 29358949662720.0,
         "collective_bytes_per_dev": {
             "all-gather": 54126501888, "reduce-scatter": 1090519040,
             "all-to-all": 167772160, "total": 55384793088}},
-    ("granite-20b", "prefill_32k"): {
+    ("granite-20b", "prefill_32k", False): {
         "flops_per_dev": 332997479890944.0,
         "collective_bytes_per_dev": {
             "all-gather": 169114337280, "reduce-scatter": 5234491392,
             "total": 174348828672}},
+    ("granite-20b", "train_4k", True): {
+        "flops_per_dev": 181462368256.0,
+        "collective_bytes_per_dev": {
+            "all-gather": 1517936640, "all-to-all": 1093713920,
+            "reduce-scatter": 7191552, "all-reduce": 10304,
+            "total": 2618852416}},
 }
 # sage_serve on one card: K cut from 64 to 8 groups of N = 4 (80 rows of
 # 1024 tokens over the two CFG evaluations; at K = 64 the naive scores
@@ -5744,34 +5811,40 @@ def phase_dryrun(failures):
     out.mkdir(parents=True, exist_ok=True)
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     children = []
-    for arch, shape in DRYRUN_CASES:
-        logf = open(out / f"{arch}_{shape}.log", "w")
-        children.append((arch, shape, logf, subprocess.Popen(
+    for case in DRYRUN_CASES:
+        arch, shape, smoke = case
+        where = out / "smoke" if smoke else out
+        where.mkdir(exist_ok=True)
+        logf = open(where / f"{arch}_{shape}.log", "w")
+        children.append((case, where, logf, subprocess.Popen(
             [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-             arch, "--shape", shape, "--out", str(out)], cwd=ROOT, env=env,
+             arch, "--shape", shape, "--out", str(where)]
+            + ["--smoke"] * smoke, cwd=ROOT, env=env,
             stdout=logf, stderr=subprocess.STDOUT)))
 
     def settle():
         while children:
-            arch, shape, logf, child = children.pop(0)
+            case, where, logf, child = children.pop(0)
+            arch, shape, smoke = case
+            name = f"{arch}:{shape}" + ":smoke" * smoke
             try:
                 rc = child.wait(timeout=DRYRUN_CHILD_S)
             except subprocess.TimeoutExpired:
                 child.kill()
                 rc = child.wait()
             logf.close()
-            text = (out / f"{arch}_{shape}.log").read_text()
+            text = (where / f"{arch}_{shape}.log").read_text()
             for line in text.splitlines():
                 if line.startswith(("[dryrun]", "  memory_analysis")):
                     log(line)
             if rc != 0:
-                failures.append(f"dryrun {arch}:{shape}: exit {rc}: "
+                failures.append(f"dryrun {name}: exit {rc}: "
                                 f"{text[-2000:]}")
                 continue
-            res = json.loads((out / f"{arch}_{shape}_16x16.json")
+            res = json.loads((where / f"{arch}_{shape}_16x16.json")
                              .read_text())
-            log(f"[dryrun:{arch}:{shape}] {json.dumps(res)}")
-            _dryrun_expected(failures, arch, shape, res)
+            log(f"[dryrun:{name}] {json.dumps(res)}")
+            _dryrun_expected(failures, case, res)
 
     try:
         launches = _dryrun_on_card(failures, settle)
@@ -5780,18 +5853,20 @@ def phase_dryrun(failures):
     return {"dryrun": launches}
 
 
-def _dryrun_expected(failures, arch, shape, res):
+def _dryrun_expected(failures, case, res):
     """One child's FLOPs and collective bytes a device held to
     ``DRYRUN_EXPECTED`` (torch 2.13's): any difference fails."""
     import torch
-    want = DRYRUN_EXPECTED[arch, shape]
+    arch, shape, smoke = case
+    name = f"{arch}:{shape}" + ":smoke" * smoke
+    want = DRYRUN_EXPECTED[case]
     got = {"flops_per_dev": res["flops_per_dev"],
            "collective_bytes_per_dev": res["collective_bytes_per_dev"]}
     for key in got:
-        log(f"[dryrun:expected] {arch}:{shape} {key}: {got[key]} "
+        log(f"[dryrun:expected] {name} {key}: {got[key]} "
             f"(torch {torch.__version__}), want {want[key]} (torch 2.13)")
     if got != want:
-        failures.append(f"dryrun {arch}:{shape}: torch {torch.__version__} "
+        failures.append(f"dryrun {name}: torch {torch.__version__} "
                         f"counts {got}, torch 2.13 {want}")
 
 

@@ -8,7 +8,12 @@ f32 to ``csrc/flash_attention.cu`` (``"tf32x3"``: mma.sync with each f32
 operand split into two TF32 values, three products summed in f32, which
 keeps f32's accuracy).  Both read the (B, S, H, D) layout in place with
 GQA by head index (query head h reads K/V head h // (H // Hkv)), so
-nothing is transposed, repeated or padded on the way in.
+nothing is transposed or repeated on the way in.  The sm90 kernel's TMA
+moves rows in 16-byte chunks: a bf16 head_dim off 8 is zero-padded to the
+next multiple of 8 in a fresh buffer (:func:`pad_head_dim`), as the JAX
+wrapper pads D to its 128 lanes, and the output sliced back; zero columns
+add nothing to a score, and the padded V columns fill only output columns
+that are dropped.
 """
 from __future__ import annotations
 
@@ -35,15 +40,21 @@ def route(dtype: torch.dtype, head_dim: int) -> tuple[str, int]:
         raise ValueError(f"flash_attention supports head_dim <= "
                          f"{MAX_HEAD_DIM}, got {head_dim}")
     if dtype == torch.bfloat16:
-        if head_dim % 8:
-            raise ValueError(f"the bf16 kernel reads rows of 16-byte TMA "
-                             f"chunks: head_dim must be a multiple of 8, "
-                             f"got {head_dim}")
         return "sm90", next(w for w in SM90_WIDTHS if w >= head_dim)
     if dtype == torch.float32:
         return "tf32x3", head_dim
     raise TypeError(f"flash_attention kernel takes float32/bfloat16, "
                     f"got {dtype}")
+
+
+def pad_head_dim(x: torch.Tensor) -> torch.Tensor:
+    """``x`` (..., D) zero-padded on its last dim to the next multiple of
+    8, in a fresh contiguous tensor (the allocator's blocks are 512-byte
+    aligned, so its rows start on 16 bytes)."""
+    D = x.shape[-1]
+    out = x.new_zeros(*x.shape[:-1], -(-D // 8) * 8)
+    out[..., :D] = x
+    return out
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
@@ -81,6 +92,10 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
             raise ValueError(f"{name} is {x.dtype} on {x.device}, q is "
                              f"{q.dtype} on {q.device}")
     kernel, width = route(q.dtype, D)
+    if kernel == "sm90" and D % 8:
+        out = flash_attention(*map(pad_head_dim, (q, k, v)), causal=causal,
+                              window=window, scale=scale)
+        return out[..., :D].contiguous()
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention kernel needs contiguous "
                          "(B, S, H, D) tensors")

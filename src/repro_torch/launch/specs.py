@@ -551,6 +551,35 @@ def _flip_strategy(op_schema):
         op_schema.get_mesh_from_args(), op_schema, rules, input_index=1)
 
 
+def _t_strategy(op_schema):
+    """``aten.t`` (a linear layer's weight, and in its backward the
+    flattened activation of the weight's gradient), by DTensor 2.13's rule
+    on every torch version: each input placement kept, a shard's dim (a
+    ``_StridedShard``'s too, with its split factor) swapped.  Torch 2.11's
+    rule kept a ``_StridedShard``'s dim as it was, so the transpose of an
+    activation flattened from a batch and a sequence sharded over both
+    mesh dims claimed rows it did not hold, and the gradient's ``mm``
+    met shards that disagree."""
+    from torch.distributed.tensor import Shard
+    from torch.distributed.tensor._dtensor_spec import DTensorSpec
+    from torch.distributed.tensor._op_schema import OpSpec, OpStrategy
+    from torch.distributed.tensor.placement_types import _StridedShard
+
+    def swapped(p, ndim):
+        if ndim <= 1:
+            return p
+        if isinstance(p, _StridedShard):
+            return _StridedShard(1 - p.dim, split_factor=p.split_factor)
+        return Shard(1 - p.dim) if isinstance(p, Shard) else p
+    out = []
+    for s in op_schema.args_schema[0].strategies:
+        spec = s.output_spec
+        out.append(OpSpec(DTensorSpec(spec.mesh, tuple(
+            swapped(p, spec.ndim) for p in spec.placements)),
+            input_specs=(spec,)))
+    return OpStrategy(out)
+
+
 def _index_put_strategy(op_schema):
     """``aten.index_put(_)`` (the embedding's gradient, a ring cache's
     write): DTensor 2.13's own rules, for every torch version: the index
@@ -1204,7 +1233,7 @@ def dtensor_rules():
       ``aten.index_copy(_)``, ``aten.convolution`` and its backward
       (whose tensor-parallel handler DTensor's dispatcher skips too),
       ``aten.mm``, ``aten.bmm``, ``aten.scatter(_)``,
-      ``aten.searchsorted``, ``aten.index_put(_)``, ``aten.flip``,
+      ``aten.searchsorted``, ``aten.index_put(_)``, ``aten.flip``, ``aten.t``,
       ``aten.constant_pad_nd``, ``aten.new_zeros`` and
       ``aten.logsumexp``; those expanded by :func:`_expand` never make a
       replicated input partial (a residual stream kept partial is reduced
@@ -1422,6 +1451,7 @@ def dtensor_rules():
                  aten.bmm.default: _matmul_strategy,
                  aten.searchsorted.Tensor: _searchsorted_strategy,
                  aten.flip.default: _flip_strategy,
+                 aten.t.default: _t_strategy,
                  aten.index_put.default: _index_put_strategy,
                  aten.index_put_.default: _index_put_strategy,
                  aten.scatter.src: _scatter_strategy,

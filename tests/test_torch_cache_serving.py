@@ -376,7 +376,7 @@ def test_chip_smoke_trace_c_stack_and_f32_checks_run_on_the_cpu():
     mods = CS._build_modules(cfg, tc, dev, torch.bfloat16)
     wrappers = (dispatch.flash_attention, dispatch.fused_cfg_ddim_step)
     with CS.record_stacks() as card:
-        done = CS._drive_cache_passes(mods, dev, failures, "cpu")
+        CS._drive_cache_passes(mods, dev, failures, "cpu")
     assert (dispatch.flash_attention, dispatch.fused_cfg_ddim_step) == \
         wrappers
     assert {(s[0], t, tn) for s, _, _, t, tn in card["ddim"]} == steps
@@ -385,6 +385,5 @@ def test_chip_smoke_trace_c_stack_and_f32_checks_run_on_the_cpu():
     # points in f32 only (ref.py rounds a bf16 eps before dividing by a_t)
     CS._trace_c_stack_checks(failures, card, steps, dev,
                              ddim_dtypes=("float32",))
-    CS._stream_cache_f32(failures, cfg, mods, dev, done["capture"],
-                         done["no cache"])
+    CS._stream_cache_f32(failures, cfg, mods, dev)
     assert failures == []

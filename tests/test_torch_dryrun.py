@@ -53,7 +53,25 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 CASES = (("phi3-mini-3.8b", "train_4k"),
          ("deepseek-v2-lite-16b", "prefill_32k"),
          ("mamba2-780m", "decode_32k"),
-         ("sage-dit", "sage_serve"))
+         ("sage-dit", "sage_serve"),
+         # its backward transposes an activation strided over both mesh
+         # dims (the batch over ``data``, the sequence over ``model``)
+         ("granite-20b", "train_4k"))
+#: what granite-20b ``train_4k --smoke`` counts a device on torch 2.13
+#: (``chip_smoke.DRYRUN_EXPECTED`` holds the card's torch to the same)
+#: the weight gradient of that chain (``test_a_strided_transpose_...``):
+#: a local (256, 4096) x (4096, 256) product, after the output gradient's
+#: rows of one ``data`` shard are gathered over ``model`` (65536 x 256
+#: bf16) and cut to the transpose's strided rows
+GRANITE_GRAD_W_FLOPS = 2 * 256 * 4096 * 256
+GRANITE_GRAD_W_COLLECTIVES = {"all-gather": 65536 * 256 * 2,
+                              "total": 65536 * 256 * 2}
+GRANITE_TRAIN_SMOKE_COUNTS = {
+    "flops_per_dev": 181462368256.0,
+    "collective_bytes_per_dev": {
+        "all-gather": 1517936640, "all-to-all": 1093713920,
+        "reduce-scatter": 7191552, "all-reduce": 10304,
+        "total": 2618852416}}
 
 
 #: the cases compiled by XLA, ``arch:shape[:tag]``, with the builder
@@ -278,6 +296,18 @@ def test_smoke_run_keys_and_model_flops_equal_jax(runs, case):
         if k != "total")
 
 
+def test_granite_train_smoke_counts_as_recorded(runs):
+    """granite-20b ``train_4k --smoke`` (4 heads, which the 16-wide
+    ``model`` axis cannot split: its head split takes the view fallback)
+    runs through ``dryrun.measure`` and counts what torch 2.13 counted
+    when the repair of its strided transpose was made (the same as
+    before it: the rule is 2.13's own)."""
+    res = runs["granite-20b", "train_4k"]
+    got = {k: res[k] for k in GRANITE_TRAIN_SMOKE_COUNTS}
+    assert got == GRANITE_TRAIN_SMOKE_COUNTS
+    assert res["memory_analysis"]["argument_size_in_bytes"] == 616452
+
+
 def test_flops_are_linear_in_the_blocks(runs):
     """The JAX dry run's k1/k2 extrapolation (k1, k2 = 1, 2 at phi3's
     smoke depth of 2 blocks) gives the counted FLOPs exactly: at the full
@@ -351,8 +381,9 @@ def test_jsons_render_through_the_roofline(runs, capsys):
         assert on_disk == json.loads(json.dumps(runs[arch, shape]))
     roofline.main(["--dir", str(d)])
     rows = capsys.readouterr().out.splitlines()
-    assert len(rows) == 2 + 4
-    assert "| phi3-mini-3.8b | train_4k |" in rows[2 + 2]
+    assert len(rows) == 2 + len(CASES)
+    phi3 = sorted(CASES).index(("phi3-mini-3.8b", "train_4k"))
+    assert "| phi3-mini-3.8b | train_4k |" in rows[2 + phi3]
 
 
 def test_tree_loss_remat_backward_uses_the_given_weights():
@@ -606,6 +637,69 @@ def test_a_partial_input_to_a_pointwise_op_takes_one_plan(op):
     assert not dist.is_initialized()
 
 
+def _t_rule_of_torch_2_11(op_schema):
+    """DTensor 2.11's plan for ``aten.t``: a ``Shard``'s dim swapped, a
+    ``_StridedShard`` kept on the dim it had."""
+    from torch.distributed.tensor import Shard
+    from torch.distributed.tensor._dtensor_spec import DTensorSpec
+    from torch.distributed.tensor._op_schema import OpSpec, OpStrategy
+    out = []
+    for s in op_schema.args_schema[0].strategies:
+        spec = s.output_spec
+        out.append(OpSpec(DTensorSpec(spec.mesh, tuple(
+            Shard(1 - p.dim) if type(p) is Shard else p
+            for p in spec.placements)), input_specs=(spec,)))
+    return OpStrategy(out)
+
+
+def test_a_strided_transpose_swaps_its_dim_on_every_torch(monkeypatch):
+    """The chain on which granite-20b ``train_4k --smoke`` failed on torch
+    2.11: an activation (256, 4096, 256) with its batch sharded over
+    ``data`` and its sequence over ``model`` is flattened for a
+    projection ((1048576, 256) at ``Shard(0)``, ``_StridedShard(0)``);
+    the weight's gradient transposes it and multiplies it by the output's
+    gradient.  With DTensor's own ``aten.t`` rule set to 2.11's, which
+    kept the ``_StridedShard`` on dim 0 of the transpose, its local rows
+    did not match and the ``mm`` raised; under ``dtensor_rules()`` the
+    module's own rule swaps the strided dim as 2.13 does, on every torch
+    version."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.distributed.tensor import DTensor, Shard, distribute_tensor
+    from torch.distributed.tensor.placement_types import _StridedShard
+    aten = torch.ops.aten
+    prop = DTensor._op_dispatcher.sharding_propagator
+    monkeypatch.setitem(prop.op_strategy_funcs, aten.t.default,
+                        _t_rule_of_torch_2_11)
+    B, S, D = 256, 4096, 256
+    with dryrun.fake_group(256):
+        mesh = make_production_mesh(device_type="cpu")
+        with FakeTensorMode(allow_non_fake_inputs=True), \
+                specs.dtensor_rules() as fb:
+            x = distribute_tensor(torch.zeros(B, S, D, dtype=torch.bfloat16),
+                                  mesh, [Shard(0), Shard(1)])
+            dy = distribute_tensor(torch.zeros(B * S, D,
+                                               dtype=torch.bfloat16),
+                                   mesh, [Shard(0), Shard(1)])
+            with dryrun.LocalCounter() as c:
+                flat = x.view(B * S, D)
+                xt = flat.t()
+                grad_w = xt @ dy
+            got = {name: (t.placements, tuple(t.to_local().shape))
+                   for name, t in (("flat", flat), ("xt", xt),
+                                   ("grad_w", grad_w))}
+            own = prop.op_strategy_funcs[aten.t.default]
+    strided = _StridedShard(0, split_factor=16)
+    assert got["flat"] == ((Shard(0), strided), (B * S // 256, D))
+    assert got["xt"] == ((Shard(1), _StridedShard(1, split_factor=16)),
+                         (D, B * S // 256))
+    assert grad_w.shape == (D, D)
+    assert own.__wrapped__ is specs._t_strategy
+    assert prop.op_strategy_funcs[aten.t.default] is _t_rule_of_torch_2_11
+    assert not fb.whole and not dist.is_initialized()
+    assert c.flops == GRANITE_GRAD_W_FLOPS, c.flops
+    assert c.collectives() == GRANITE_GRAD_W_COLLECTIVES, c.collectives()
+
+
 def test_chip_smoke_holds_each_dry_run_case_to_its_expected_counts():
     """``chip_smoke.py``'s ``dryrun`` phase holds every case of
     ``DRYRUN_CASES`` to ``DRYRUN_EXPECTED`` (FLOPs and collective bytes a
@@ -617,18 +711,24 @@ def test_chip_smoke_holds_each_dry_run_case_to_its_expected_counts():
     chip_smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(chip_smoke)
     assert set(chip_smoke.DRYRUN_EXPECTED) == set(chip_smoke.DRYRUN_CASES)
-    assert {("recurrentgemma-2b", "prefill_32k"),
-            ("granite-20b", "prefill_32k")} <= set(chip_smoke.DRYRUN_CASES)
-    for (arch, shape), want in chip_smoke.DRYRUN_EXPECTED.items():
+    assert {("recurrentgemma-2b", "prefill_32k", False),
+            ("granite-20b", "prefill_32k", False),
+            ("granite-20b", "train_4k", True)} <= set(
+                chip_smoke.DRYRUN_CASES)
+    # the smoke case's counts are the ones this module pins on the CPU
+    assert chip_smoke.DRYRUN_EXPECTED["granite-20b", "train_4k", True] == (
+        GRANITE_TRAIN_SMOKE_COUNTS)
+    for case, want in chip_smoke.DRYRUN_EXPECTED.items():
+        arch, shape, smoke = case
         assert want["collective_bytes_per_dev"]["total"] == sum(
             v for k, v in want["collective_bytes_per_dev"].items()
             if k != "total")
         failures = []
-        chip_smoke._dryrun_expected(failures, arch, shape, dict(want))
+        chip_smoke._dryrun_expected(failures, case, dict(want))
         assert failures == []
         coll = dict(want["collective_bytes_per_dev"])
         coll["all-gather"] = coll.get("all-gather", 0) + 1
-        chip_smoke._dryrun_expected(failures, arch, shape, dict(
+        chip_smoke._dryrun_expected(failures, case, dict(
             want, collective_bytes_per_dev=coll))
         assert len(failures) == 1 and f"{arch}:{shape}" in failures[0]
 
@@ -639,8 +739,10 @@ def test_roofline_compares_two_runs_case_by_case(runs, tmp_path, capsys):
     or that one run lacks, is printed."""
     from repro_torch.launch import roofline
     roofline.main(["--dir", runs["dir"], "--against", runs["dir"]])
+    # the cases and the sage JSON tagged dp_only
+    n = len(CASES) + 1
     assert capsys.readouterr().out.splitlines() == [
-        "", "5 of 5 cases count the same"]
+        "", f"{n} of {n} cases count the same"]
     other = tmp_path / "other"
     other.mkdir()
     for f in pathlib.Path(runs["dir"]).glob("*.json"):
@@ -655,4 +757,4 @@ def test_roofline_compares_two_runs_case_by_case(runs, tmp_path, capsys):
     assert out[0] == "mamba2-780m:decode_32k:16x16:baseline: only in this run"
     assert out[1].startswith("phi3-mini-3.8b:train_4k:16x16:baseline: "
                              "collective_bytes_per_dev")
-    assert out[-1] == "3 of 4 cases count the same"
+    assert out[-1] == f"{n - 2} of {n - 1} cases count the same"

@@ -1,9 +1,10 @@
 """The flash-attention wrapper's two CUDA routes, as far as the CPU shows
 them: which kernel a dtype takes and the head-dim width it pads to, that
-the sm90 launcher is handed that width, and that CPU tensors of either
-dtype take the plain version without counting a launch.  The kernels
-themselves are held against ``attention_ref`` on the card by
-``chip_smoke.py``."""
+the sm90 launcher is handed that width, that the zero columns the bf16
+route pads a head_dim off 8 with leave attention unchanged, and that
+CPU tensors of either dtype take the plain version without counting a
+launch.  The kernels themselves are held against ``attention_ref`` on
+the card by ``chip_smoke.py``."""
 import ctypes
 import math
 
@@ -19,9 +20,21 @@ from repro_torch.kernels.flash_attention.ref import attention_ref
 
 @pytest.mark.parametrize("head_dim,width", [
     (72, 80), (32, 32), (64, 64), (192, 192), (256, 256),
-    (8, 32), (40, 64), (80, 80), (96, 128), (128, 128), (136, 192)])
+    (8, 32), (40, 64), (80, 80), (96, 128), (128, 128), (136, 192),
+    (1, 32), (36, 64), (100, 128), (250, 256)])
 def test_bf16_routes_to_sm90_at_the_padded_width(head_dim, width):
     assert flash_ops.route(torch.bfloat16, head_dim) == ("sm90", width)
+
+
+def test_bf16_route_takes_every_head_dim_to_256():
+    """A head_dim off 8 is padded to the next multiple of 8 by the wrapper,
+    which the same width holds, so every D in 1..256 takes the sm90
+    kernel, as the TPU kernel takes every D <= 256."""
+    for head_dim in range(1, flash_ops.MAX_HEAD_DIM + 1):
+        kernel, width = flash_ops.route(torch.bfloat16, head_dim)
+        assert kernel == "sm90" and head_dim <= width
+        assert width == flash_ops.route(torch.bfloat16,
+                                        -(-head_dim // 8) * 8)[1]
 
 
 @pytest.mark.parametrize("head_dim", [72, 192, 20, 256])
@@ -33,11 +46,6 @@ def test_f32_routes_to_the_tf32x3_kernel(head_dim):
 def test_route_rejects_head_dim_past_256(dtype):
     with pytest.raises(ValueError, match="head_dim"):
         flash_ops.route(dtype, 264)
-
-
-def test_bf16_route_rejects_head_dim_off_16_bytes():
-    with pytest.raises(ValueError, match="multiple of 8"):
-        flash_ops.route(torch.bfloat16, 36)
 
 
 def test_route_rejects_other_dtypes():
@@ -89,6 +97,45 @@ def test_cpu_tensors_take_the_plain_version_without_a_launch(case, dtype):
     assert set(by_route) == set(flash_ops.ROUTES)
 
 
+# (B, Sq, Sk, H, Hkv, D, causal, window) at head_dims off 8: causal GQA
+# with a window, non-causal cross with a ragged Sk, the widest head
+PAD_CASES = {
+    "gqa_window_hd36": (2, 96, 96, 4, 2, 36, True, 24),
+    "cross_sk77_hd100": (2, 40, 77, 4, 4, 100, False, 0),
+    "causal_hd250": (1, 70, 70, 2, 1, 250, True, 0),
+    "hd1": (1, 20, 30, 2, 2, 1, False, 0),
+}
+PAD_TOL = {torch.float32: 1e-6, torch.bfloat16: 4e-2}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(PAD_CASES))
+def test_head_dim_padding_leaves_attention_unchanged(case, dtype):
+    """What the bf16 route does with a head_dim off 8: q, k and v padded
+    with zero columns to the next multiple of 8 (a fresh contiguous
+    buffer), attention at the true D's scale, the output sliced back to D
+    equal to attention on the originals."""
+    B, Sq, Sk, H, Hkv, D, causal, window = PAD_CASES[case]
+    rng = np.random.default_rng(sum(map(ord, case)))
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(dtype) for shape in
+        ((B, Sq, H, D), (B, Sk, Hkv, D), (B, Sk, Hkv, D)))
+    # a transposed view too: the pad's buffer is contiguous whatever it is
+    # given
+    k = k.transpose(1, 2).contiguous().transpose(1, 2)
+    padded = [flash_ops.pad_head_dim(x) for x in (q, k, v)]
+    D8 = -(-D // 8) * 8
+    for x, p in zip((q, k, v), padded):
+        assert p.shape == x.shape[:-1] + (D8,) and p.is_contiguous()
+        assert torch.equal(p[..., :D], x) and not p[..., D:].any()
+    scale = 1.0 / math.sqrt(D)
+    kw = dict(causal=causal, window=window, scale=scale)
+    got = attention_ref(*padded, **kw)[..., :D]
+    want = attention_ref(q, k, v, **kw)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=PAD_TOL[dtype])
+
+
 def _chip_smoke():
     """``chip_smoke.py`` as a module (it imports only the standard library
     at the top)."""
@@ -99,6 +146,26 @@ def _chip_smoke():
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+@pytest.mark.parametrize("path,full,want", [
+    ("vlm", True, 48), ("vlm", False, 12),
+    ("encdec", True, 72), ("encdec", False, 18)])
+def test_chip_smoke_flash_launches_a_prefill_follow_the_depth(path, full,
+                                                              want):
+    """``chip_smoke.py`` holds a cross-attention LM's prefill to one sm90
+    launch a self-attention, a cross-attention and an encoder layer,
+    counted from the model it built: at full depth the 48 (VLM: 40 self,
+    8 cross) and 72 (seamless: 24 encoder, 24 self, 24 cross) it was held
+    to before, at the path's cut depth what those layers give."""
+    from repro_torch.config import get_config, replace
+    from repro_torch.models import transformer as tfm
+    smoke = _chip_smoke()
+    spec = smoke.PATHS[path]
+    cfg = get_config(spec["arch"])
+    if not full:
+        cfg = replace(cfg, **smoke._depth(spec))
+    assert smoke._flash_per_prefill(tfm.meta_lm(cfg)) == want
 
 
 def _p_in_bf16(q, k, v, scale):

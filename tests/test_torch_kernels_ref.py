@@ -182,6 +182,10 @@ FLASH_CASES = {
     # its 64-row query tiles under the causal mask
     "hd80_sk1": (2, 40, 1, 2, 2, 80, False, 0),
     "causal_sq130_hd256": (1, 130, 130, 2, 2, 256, True, 0),
+    # head_dims off 8, which the bf16 route zero-pads to a multiple of 8
+    # as the JAX wrapper pads to its lanes
+    "gqa_causal_hd36": (2, 96, 96, 4, 2, 36, True, 0),
+    "gqa_window_hd100": (2, 128, 128, 4, 2, 100, True, 40),
 }
 
 
